@@ -11,21 +11,36 @@ with a CUDA card and the CUDA toolkit (``nvcc``). Phases:
 3. Kernels vs plain, edge cases: each kernel against its plain PyTorch
    version on the card, on random maps and cells made from a seed at the
    default config's widths (beam capacity 1024, 5x5 and 41x41 windows,
-   1024^2 and 1536^2 maps): off-map edges, far-out zero-weight beams,
-   ``map_idx`` over stacked maps, K2 at kernel_size 2 and at a 40 m
-   range. Phase 5 holds them again on the slice's own inputs.
+   1024^2 and 1536^2 maps). K1: off-map edges, far-out zero-weight beams,
+   every beam a border beam, border and interior beams in one row, all
+   weights zero (scores exactly 0), 13 live beams (not a multiple of the
+   beam split), NB = 384, ``map_idx`` over stacked maps. K2: kernel_size
+   1, 2 and 3 (the run-time body) at Q = 1 and 8, a 40 m range,
+   ``map_idx``; its core must equal the plain core bit for bit. Every
+   case is launched twice and the two outputs must be bit-equal (for K2
+   this also shows that its scratch clears itself). Phase 5 holds them
+   again on the slice's own inputs.
 4. Slice: the default online SLAM path (``configs/
    launcher_settings_default.json``, synchronous backend) over a synthetic
    intel-like world, 2 laps at 0.08 m steps, through ``config.load``,
    ``config.create_slam``, ``carmen.load`` and ``process_scan``. The launch
    counters are zeroed just before and read just after.
-5. Times: for every shape the slice gave a kernel, the kernel and its
-   plain version run again on the inputs of the slice's last call at that
-   shape; their outputs are held to the tolerances of phase 3 and both are
-   timed with CUDA events, beside the least time the card could take: the
-   larger of the bytes the call must move (the map cells it reads, counted
-   on these inputs, plus the other inputs and the output, each once) over
-   3.35 TB/s and its operations over 67 TFLOP/s.
+5. Times: first the launch floor, an empty kernel launched as the kernels
+   are (ctypes, current stream). Then, for every shape the slice gave a
+   kernel, the kernel and its plain version run again on the inputs of the
+   slice's last call at that shape; the outputs are held to phase 3's
+   tolerances (K2 bit-equal) and to a relaunch (bit-equal). The kernel is
+   timed with CUDA events three ways: queued (the card sleeps while the
+   host enqueues 20 calls, so the time is the device's), back to back
+   without that, and alone after a 128 MB write (a cold L2). Beside it:
+   the plain version's time; for K1 the library yardstick,
+   ``embedding_bag(mode="sum", per_sample_weights=...)`` over flat indices
+   into a zero-padded map (built outside the timed region, in theta chunks
+   of at most 1.5e8 indices), held to K1's tolerance as well; and the
+   least time the card could take: the larger of the bytes the call must
+   move (the map cells it reads, counted on these inputs, plus the other
+   inputs and the output, each once) over 3.35 TB/s and its operations
+   over 67 TFLOP/s, with its share of the queued time.
 
 The last three lines of standard output are the ``kernels`` JSON line, the
 ``nvidia-smi`` name and power limit, and the result line
@@ -124,14 +139,19 @@ def phase_kernels(torch, dev, nb):
 
     def k1(name, vm, ix, iy, w, win, map_idx=None, plain_q=None):
         got = correlate.window_scores(vm, ix, iy, w, win, win, map_idx)
+        again = correlate.window_scores(vm, ix, iy, w, win, win, map_idx)
         sl = slice(0, plain_q)
         ref = correlate.window_scores_plain(
             vm, ix[sl], iy[sl], w[sl], win, win,
             None if map_idx is None else map_idx[sl])
         torch.cuda.synchronize()
+        if not torch.equal(got, again):
+            raise AssertionError(f"K1 {name}: two launches differ")
         e = check_k1(name, got[sl], ref, torch)
         errs["window_scores"] = max(errs["window_scores"], e)
-        log(f"  K1 {name}: {tuple(got.shape)} max|err| {e:.3g}")
+        log(f"  K1 {name}: {tuple(got.shape)} max|err| {e:.3g}, "
+            "bit-equal on relaunch")
+        return got
 
     # Frontend shape: 1024^2 map, Q=1, NT=201, 5x5 window.
     m1 = random_map(gen, 1024, 1024, dev, torch)
@@ -152,6 +172,23 @@ def phase_kernels(torch, dev, nb):
     k1("far zero-weight", m1,
        torch.where(far.to(dev), big.to(dev), ix),
        torch.where(far.to(dev), -big.to(dev), iy), wz, 2)
+    # Every beam a border beam (its window crosses an edge), and half the
+    # beams of each (q, theta) border, half interior.
+    rim = torch.tensor([-2, 0, 1023, 1025])
+    bx = rim[torch.randint(0, 4, (1, 201, nb), generator=gen)].int().to(dev)
+    k1("all border", m1, bx, iy, w, 2)
+    half = (torch.rand((1, 1, nb), generator=gen) < 0.5).to(dev)
+    k1("interior and border", m1, torch.where(half, bx, ix), iy, w, 2)
+    # All weights zero: exactly 0. 13 live beams: not a multiple of the
+    # beam split. NB = 384, the slice's bucket.
+    zero = k1("all weights zero", m1, ix, iy, torch.zeros_like(w), 2)
+    if bool((zero != 0).any()):
+        raise AssertionError("K1 all weights zero: a score is not 0")
+    w13 = torch.zeros_like(w)
+    w13[:, torch.randperm(nb, generator=gen)[:13].to(dev)] = 1.0
+    k1("13 live beams", m1, ix, iy, w13, 2)
+    k1("NB 384", m1, ix[..., :384].contiguous(), iy[..., :384].contiguous(),
+       w[:, :384].contiguous(), 2)
 
     # Detection shape: 1536^2 map, Q=8, NT=401, 41x41 window; the plain
     # version runs on 2 of the 8 queries to bound its memory.
@@ -182,10 +219,23 @@ def phase_kernels(torch, dev, nb):
         kw = dict(kernel_size=k, map_idx=map_idx)
         got = greedy_cost.greedy_cost_cov(*args, **kw)
         ref = greedy_cost.greedy_cost_cov_plain(*args, **kw)
+        # The core itself: bit-equal to the plain core, and two calls in a
+        # row give the same bits (the kernel's scratch clears itself).
+        cells = greedy_cost.prepare_cells(origin, poses, ranges, angles, res,
+                                          0.075)
+        table = greedy_cost.class_table(res, k, 1.0, dev)
+        core = (vm, cells, mask, table, k, 0.1, map_idx)
+        raw = greedy_cost.greedy_cost_core(*core)
+        raw2 = greedy_cost.greedy_cost_core(*core)
+        raw_ref = greedy_cost.greedy_cost_core_plain(*core)
         torch.cuda.synchronize()
         e = check_k2(name, got, ref, torch)
+        if not (torch.equal(raw, raw_ref) and torch.equal(raw, raw2)):
+            raise AssertionError(f"K2 {name}: core not bit-equal to the "
+                                 "plain core or to its own relaunch")
         errs["greedy_cost"] = max(errs["greedy_cost"], e)
-        log(f"  K2 {name}: Q={q} k={k} max|err| {e:.3g}")
+        log(f"  K2 {name}: Q={q} k={k} max|err| {e:.3g}, core bit-equal "
+            "to plain and on relaunch")
 
     # Smooth-ish map so that many kernel cells are usable.
     occ = (torch.rand((1024, 1024), generator=gen) < 0.15).float()
@@ -196,6 +246,9 @@ def phase_kernels(torch, dev, nb):
     k2("frontend", m3, org, 1, 1, 20.0)
     k2("detection", m3, org, 8, 1, 20.0)
     k2("kernel_size 2", m3, org, 8, 2, 20.0)
+    k2("kernel_size 2, Q=1", m3, org, 1, 2, 20.0)
+    k2("kernel_size 3 (run-time k)", m3, org, 8, 3, 20.0)
+    k2("kernel_size 3, Q=1", m3, org, 1, 3, 20.0)
     k2("usable_range_max 40", m3, org, 8, 1, 40.0)
     stack3 = torch.stack([m3, m3.flip(0)])
     orgs = torch.tensor([[-25.6, -25.6], [-20.0, -30.0]], device=dev)
@@ -350,17 +403,121 @@ def phase_slice(torch, dev, workdir):
 # --------------------------------------------------------------------------
 
 
-def time_ms(torch, fn, iters=20):
+def time_ms(torch, fn, iters=20, queued=True):
+    """Mean ms of ``fn`` over ``iters`` back-to-back calls, by CUDA events.
+    With ``queued`` the card first sleeps (~3 ms) while the host enqueues
+    every call, so the time is the device's alone, without the host's
+    per-call cost; without it, a call shorter than its own enqueue is timed
+    at the host's rate."""
     fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    if queued:
+        torch.cuda._sleep(5_000_000)
     start.record()
     for _ in range(iters):
         fn()
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+FLUSH_BYTES = 128 << 20        # > the H100's 50 MB L2
+
+
+def time_cold_ms(torch, fn, iters=10):
+    """Mean ms of one call of ``fn`` alone, by CUDA events around it, right
+    after writing a 128 MB buffer, so that the call finds the L2 cold."""
+    flush = torch.empty(FLUSH_BYTES // 4, dtype=torch.float32,
+                        device="cuda")
+    fn()
+    torch.cuda.synchronize()
+    total = 0.0
+    for _ in range(iters):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        flush.fill_(1.0)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        total += start.elapsed_time(end)
+    return total / iters
+
+
+def launch_floor(torch):
+    """An empty kernel launched as the port's kernels are (ctypes, the
+    current stream): (queued ms, cold single-launch ms)."""
+    import ctypes
+    from my_lidar_graph_slam_tpu_torch.ops.cuda import loader
+
+    fn = loader.library("empty").empty_launch
+    fn.restype, fn.argtypes = ctypes.c_int, [ctypes.c_void_p]
+
+    def launch():
+        loader.check(fn(torch.cuda.current_stream().cuda_stream), "empty")
+
+    return time_ms(torch, launch, iters=200), time_cold_ms(torch, launch)
+
+
+def k1_library(torch, vm, ix, iy, w, wx, wy, map_idx, max_elems=150e6):
+    """K1's function as PyTorch's ``embedding_bag(mode="sum",
+    per_sample_weights=...)``: one bag per output (q, t, a, b) of the live
+    beams' flat indices into a zero-padded copy of the map (off-map cells
+    land in the zero ring), with the beams' weights; the bag length is the
+    most live beams of any query, the shorter queries padded with weight-0
+    reads of cell 0. Returns (ms, scores): the indices are built outside
+    the timed region, in theta chunks of at most ``max_elems`` indices, and
+    the time is that of one embedding_bag call per chunk."""
+    f = torch.nn.functional
+    maps = vm if vm.dim() == 3 else vm[None]
+    _, h, wd = maps.shape
+    py, px = wy + 1, wx + 1
+    padded = f.pad(maps, (px, px, py, py))
+    hp, wp = h + 2 * py, wd + 2 * px
+    table = padded.reshape(-1, 1)
+    q, nt, nb = ix.shape
+    live = w != 0
+    n_live = int(live.sum(1).max())
+    # Live beams first, in beam order, then padding.
+    order = torch.sort((~live).to(torch.int8), dim=1, stable=True).indices
+    sel = order[:, :n_live]                                     # [Q, L]
+    wsel = torch.gather(w, 1, sel)                              # 0 on padding
+    base = torch.zeros(q, dtype=torch.int64, device=ix.device)
+    if map_idx is not None:
+        base = map_idx.long() * (hp * wp)
+    wxn, wyn = 2 * wx + 1, 2 * wy + 1
+    dx = torch.arange(-wx, wx + 1, device=ix.device)
+    dy = torch.arange(-wy, wy + 1, device=ix.device)
+    per_theta = q * wxn * wyn * max(n_live, 1)
+    step = max(1, int(max_elems // per_theta))
+    chunks = []
+    for t0 in range(0, nt, step):
+        t1 = min(nt, t0 + step)
+        idx_sel = sel[:, None, :].expand(q, t1 - t0, n_live)
+        gx = torch.gather(ix[:, t0:t1].long(), 2, idx_sel)      # [Q,T,L]
+        gy = torch.gather(iy[:, t0:t1].long(), 2, idx_sel)
+        gx = (gx[:, :, None, None, :] + dx[:, None, None] + px).clamp(
+            0, wp - 1)
+        gy = (gy[:, :, None, None, :] + dy[None, :, None] + py).clamp(
+            0, hp - 1)
+        flat = base[:, None, None, None, None] + gy * wp + gx  # [Q,T,X,Y,L]
+        flat = torch.where(wsel[:, None, None, None, :] != 0, flat,
+                           torch.zeros_like(flat)).reshape(-1, n_live)
+        psw = wsel[:, None, None, None, :].expand(
+            q, t1 - t0, wxn, wyn, n_live).reshape(-1, n_live).contiguous()
+        chunks.append((t0, t1, flat.contiguous(), psw))
+
+    def run():
+        return [f.embedding_bag(idx, table, mode="sum",
+                                per_sample_weights=psw)
+                for _, _, idx, psw in chunks]
+
+    outs = run()
+    scores = torch.cat([o.reshape(q, t1 - t0, wxn, wyn)
+                        for (t0, t1, _, _), o in zip(chunks, outs)], dim=1)
+    return time_ms(torch, run, iters=3), scores
 
 
 def nbytes(*tensors):
@@ -404,20 +561,42 @@ def cells_read(torch, value_map, map_idx, centers):
     return int(read.sum())
 
 
+def share(bound, ms):
+    return bound / ms if ms > 0 else None
+
+
 def phase_times(torch, rec, stats, slam, errs):
-    """Per main-path shape of each kernel: the kernel against its plain
-    version on the slice's inputs (held to phase 3's tolerances), both
-    timed, and the bound."""
+    """Per main-path shape of each kernel, on the inputs of the slice's last
+    call at that shape: the kernel against its plain version (held to phase
+    3's tolerances; K2 bit-equal) and against its own relaunch (bit-equal);
+    its time queued, back to back, and alone with a cold
+    L2; the plain version's time; K1's library yardstick; the bound and its
+    share; and the floor of an empty launch."""
     from my_lidar_graph_slam_tpu_torch.ops.cuda import correlate, greedy_cost
 
+    floor_ms, floor_cold_ms = launch_floor(torch)
+    log(f"  launch floor (empty kernel, ctypes, current stream): "
+        f"{floor_ms:.5f} ms queued, {floor_cold_ms:.5f} ms alone")
+    common = {"launch_floor_ms": floor_ms,
+              "launch_floor_cold_ms": floor_cold_ms}
     rows = []
     for (path, q), (args, kw) in sorted(rec[0].calls.items()):
         vm, ix, iy, w, wx, wy, *rest = args
         map_idx = rest[0] if rest else kw.get("map_idx")
-        out = correlate.window_scores(vm, ix, iy, w, wx, wy, map_idx)
+
+        def kernel():
+            return correlate.window_scores(vm, ix, iy, w, wx, wy, map_idx)
+
+        name = f"{path} Q={q} (main-path inputs)"
+        out, again = kernel(), kernel()
         ref = correlate.window_scores_plain(vm, ix, iy, w, wx, wy, map_idx)
         torch.cuda.synchronize()
-        err = check_k1(f"{path} Q={q} (main-path inputs)", out, ref, torch)
+        if not torch.equal(out, again):
+            raise AssertionError(f"K1 {name}: two launches differ")
+        err = check_k1(name, out, ref, torch)
+        lib_ms, lib_out = k1_library(torch, vm, ix, iy, w, wx, wy, map_idx)
+        check_k1(name + " library yardstick", lib_out, ref, torch)
+        del lib_out
         _, nt, nb = ix.shape
         live = (w != 0)[:, None, :].expand_as(ix)
         n_live = int(live.sum())                # live (q, theta, beam)
@@ -426,6 +605,8 @@ def phase_times(torch, rec, stats, slam, errs):
         read = cells_read(torch, vm, map_idx, [(ix, iy, live, wx, wy)])
         moved = 4 * read + 8 * n_live + nbytes(w, map_idx, out)
         b, by = bound_ms(moved, ops)
+        ms = time_ms(torch, kernel)
+        g = correlate.launch_geometry(nb, wx, wy)
         rows.append({
             "name": f"window_scores[{path} Q={q}]", "route": "cuda",
             "source": "my_lidar_graph_slam_tpu_torch/csrc/correlate.cu",
@@ -434,14 +615,21 @@ def phase_times(torch, rec, stats, slam, errs):
             "launches": rec[0].counts[(path, q)],
             "max_abs_err": err,
             "edge_cases_max_abs_err": errs["window_scores"],
-            "ms": time_ms(torch, lambda: correlate.window_scores(
-                vm, ix, iy, w, wx, wy, map_idx)),
+            "bit_equal_on_relaunch": True,
+            "ms": ms,
+            "ms_back_to_back": time_ms(torch, kernel, queued=False),
+            "cold_ms": time_cold_ms(torch, kernel),
             "plain_ms": time_ms(torch, lambda: correlate.window_scores_plain(
                 vm, ix, iy, w, wx, wy, map_idx), iters=3),
-            "bound_ms": b, "bound_by": by, "library_ms": None,
-            "shape": {"Q": q, "NT": nt, "NB": nb, "window": [2 * wx + 1,
-                                                             2 * wy + 1],
-                      "map": list(vm.shape[-2:]), "map_cells_read": read}})
+            "bound_ms": b, "bound_by": by, "bound_share": share(b, ms),
+            "library_ms": lib_ms,
+            "library": "torch.nn.functional.embedding_bag(mode='sum', "
+                       "per_sample_weights) over a zero-padded map",
+            **common,
+            "shape": {"Q": q, "NT": nt, "NB": nb, "live_beams": n_live,
+                      "window": [2 * wx + 1, 2 * wy + 1],
+                      "map": list(vm.shape[-2:]), "map_cells_read": read,
+                      "geometry": g._asdict()}})
 
     res = slam.builder.config.resolution
     for (path, q), (args, kw) in sorted(rec[1].calls.items()):
@@ -450,13 +638,20 @@ def phase_times(torch, rec, stats, slam, errs):
         gp = dict(slam.frontend.matcher.greedy_params if path == "frontend"
                   else slam.backend.detector.greedy_params)
         scaling = gp.get("scaling_factor", 0.05)
-        raw = greedy_cost.greedy_cost_core(vm, cells, mask, table, k, thr,
-                                           map_idx)
+
+        def kernel():
+            return greedy_cost.greedy_cost_core(vm, cells, mask, table, k,
+                                                thr, map_idx)
+
+        name = f"{path} Q={q} (main-path inputs)"
+        raw, again = kernel(), kernel()
         raw_ref = greedy_cost.greedy_cost_core_plain(vm, cells, mask, table,
                                                      k, thr, map_idx)
         torch.cuda.synchronize()
-        err = check_k2(f"{path} Q={q} (main-path inputs)",
-                       greedy_cost._epilogue(raw, res, scaling),
+        if not (torch.equal(raw, raw_ref) and torch.equal(raw, again)):
+            raise AssertionError(f"K2 {name}: not bit-equal to the plain "
+                                 "core or to its own relaunch")
+        err = check_k2(name, greedy_cost._epilogue(raw, res, scaling),
                        greedy_cost._epilogue(raw_ref, res, scaling), torch)
         nb = cells.shape[3]
         n_masked = int(mask.sum())
@@ -472,6 +667,7 @@ def phase_times(torch, rec, stats, slam, errs):
         moved = 4 * read + 4 * 12 * n_masked + \
             nbytes(mask, table, map_idx, raw)
         b, by = bound_ms(moved, ops)
+        ms = time_ms(torch, kernel)
         rows.append({
             "name": f"greedy_cost[{path} Q={q}]", "route": "cuda",
             "source": "my_lidar_graph_slam_tpu_torch/csrc/greedy_cost.cu",
@@ -480,15 +676,23 @@ def phase_times(torch, rec, stats, slam, errs):
             "launches": rec[1].counts[(path, q)],
             "max_abs_err": err,
             "edge_cases_max_abs_err": errs["greedy_cost"],
-            "ms": time_ms(torch, lambda: greedy_cost.greedy_cost_core(
-                vm, cells, mask, table, k, thr, map_idx)),
+            "bit_equal_to_plain": True, "bit_equal_on_relaunch": True,
+            "ms": ms,
+            "ms_back_to_back": time_ms(torch, kernel, queued=False),
+            "cold_ms": time_cold_ms(torch, kernel),
             "plain_ms": time_ms(torch, lambda:
                                 greedy_cost.greedy_cost_core_plain(
                                     vm, cells, mask, table, k, thr,
                                     map_idx), iters=5),
-            "bound_ms": b, "bound_by": by, "library_ms": None,
-            "shape": {"Q": q, "NB": nb, "kernel_size": k,
-                      "map": list(vm.shape[-2:]), "map_cells_read": read}})
+            "bound_ms": b, "bound_by": by, "bound_share": share(b, ms),
+            "library_ms": None,
+            "library": "none: a minimum over each beam's usable cells, then "
+                       "a histogram of the minima per pose, is no single "
+                       "PyTorch call",
+            **common,
+            "shape": {"Q": q, "NB": nb, "masked_beams": n_masked,
+                      "kernel_size": k, "map": list(vm.shape[-2:]),
+                      "map_cells_read": read}})
     for name, key in (("window_scores", 0), ("greedy_cost", 1)):
         if sum(rec[key].counts.values()) != stats["launches"][name]:
             raise AssertionError(f"{name}: per-shape counts do not add up "
@@ -538,8 +742,14 @@ def main() -> int:
     t0 = time.perf_counter()
     rows = phase_times(torch, rec, stats, slam, errs)
     for r in rows:
-        log(f"  {r['name']}: {r['ms']:.4f} ms (plain {r['plain_ms']:.3f} ms, "
-            f"bound {r['bound_ms']:.5f} ms by {r['bound_by']}), "
+        lib = "n/a" if r["library_ms"] is None else \
+            f"{r['library_ms']:.4f} ms"
+        log(f"  {r['name']}: {r['ms']:.5f} ms queued, "
+            f"{r['ms_back_to_back']:.5f} ms back to back, "
+            f"{r['cold_ms']:.5f} ms cold L2 (plain {r['plain_ms']:.3f} ms, "
+            f"library {lib}, bound {r['bound_ms']:.5f} ms by "
+            f"{r['bound_by']} = {r['bound_share']:.3f} of the time, "
+            f"launch floor {r['launch_floor_ms']:.5f} ms), "
             f"{r['launches']} launches, max|err| vs plain "
             f"{r['max_abs_err']:.3g} {json.dumps(r['shape'])}")
     log(f"[5/5] times: ok in {time.perf_counter() - t0:.1f} s")

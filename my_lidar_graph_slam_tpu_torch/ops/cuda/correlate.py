@@ -16,6 +16,9 @@ beam contributes nothing wherever its cells lie.
 from __future__ import annotations
 
 import ctypes
+import functools
+import math
+from typing import NamedTuple
 
 import torch
 
@@ -45,6 +48,58 @@ def _check_inputs(value_map, ix, iy, beam_weight, map_idx):
         devices.add(map_idx.device)
     if len(devices) != 1:
         raise ValueError("all inputs must be on one device")
+
+
+class Geometry(NamedTuple):
+    """Launch geometry of the kernel (see ``csrc/correlate.cu``): each
+    thread owns ``rows`` outputs of one dx column; a block is ``splits``
+    groups of ``slots`` threads (the beams are split over the groups) and
+    covers one (q, theta) row in ``passes`` passes over its slots; beams
+    are staged ``chunk`` slots at a time; ``stage`` sends the outputs
+    through shared memory. ``threads`` and ``shared_bytes`` are what the
+    launch asks for (the latter as the kernel computes it); the grid is
+    one block per (q, theta)."""
+    rows: int
+    splits: int
+    slots: int
+    passes: int
+    chunk: int
+    stage: bool
+    threads: int
+    shared_bytes: int
+
+
+MAX_CHUNK = 1024          # beam slots staged in shared memory at a time
+MAX_SLOTS = 512           # threads of one beam group
+BLOCK_THREADS = 256       # the block size the beam split aims at
+MAX_STAGED_CELLS = 3072   # largest window whose outputs go through shared
+
+
+@functools.lru_cache(maxsize=64)
+def launch_geometry(nb: int, win_x: int, win_y: int) -> Geometry:
+    """Geometry for ``nb`` beam slots and a (2 win_x + 1) x (2 win_y + 1)
+    window. A window of up to 128 cells takes one output per thread and
+    splits the beams over up to 8 groups (the frontend's 5 x 5 gives 8
+    warps of 25 busy lanes); a larger one takes the most rows per thread,
+    up to 8, that repeat at most a twentieth of the window's rows (41 x 41
+    gives 7 rows, 6 row groups, 246 of 256 threads busy)."""
+    wxn, wyn = 2 * win_x + 1, 2 * win_y + 1
+    cells = wxn * wyn
+    if cells <= 128:
+        rows = 1
+    else:
+        rows = max(r for r in range(1, 9)
+                   if math.ceil(wyn / r) * r - wyn <= wyn / 20)
+    total = wxn * math.ceil(wyn / rows)
+    slots = min(32 * math.ceil(total / 32), MAX_SLOTS)
+    splits = max(1, min(8, BLOCK_THREADS // slots))
+    chunk = max(1, min(nb, MAX_CHUNK))
+    stage = cells <= MAX_STAGED_CELLS
+    shared = chunk * (16 + 8) + 4 * (
+        (splits * rows * slots if splits > 1 else 0) +
+        (cells if stage else 0)) + 4 * 66
+    return Geometry(rows, splits, slots, math.ceil(total / slots), chunk,
+                    stage, splits * slots, shared)
 
 
 def window_scores_plain(value_map, ix, iy, beam_weight, win_x: int,
@@ -91,21 +146,25 @@ def window_scores(value_map, ix, iy, beam_weight, win_x: int, win_y: int,
     if value_map.device.type != "cuda":
         raise ValueError(f"unsupported device {value_map.device}")
     q, nt, nb = ix.shape
-    if nt > 65535 or q > 65535:
-        raise ValueError("NT and Q must each be at most 65535")
+    h, w = value_map.shape[-2:]
+    if q * nt >= 2 ** 31 or h * w >= 2 ** 31:
+        raise ValueError("Q * NT and H * W must each be below 2^31")
     value_map, ix, iy, beam_weight = (t.contiguous() for t in
                                       (value_map, ix, iy, beam_weight))
     if map_idx is not None:
         map_idx = map_idx.contiguous()
-    h, w = value_map.shape[-2:]
     out = torch.empty((q, nt, 2 * win_x + 1, 2 * win_y + 1),
                       dtype=torch.float32, device=ix.device)
+    if out.numel() == 0:
+        return out
+    g = launch_geometry(nb, win_x, win_y)
     lib = _lib()
     status = lib.window_scores_f32(
         value_map.data_ptr(), h, w, ix.data_ptr(), iy.data_ptr(),
         beam_weight.data_ptr(),
         None if map_idx is None else map_idx.data_ptr(),
-        q, nt, nb, win_x, win_y, out.data_ptr(),
+        q, nt, nb, win_x, win_y, g.rows, g.splits, g.slots, g.chunk,
+        int(g.stage), out.data_ptr(),
         torch.cuda.current_stream(ix.device).cuda_stream)
     loader.check(status, "window_scores")
     window_scores.launches += 1
@@ -121,5 +180,6 @@ def _lib():
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
         fn.restype = ctypes.c_int
-        fn.argtypes = [p, i, i, p, p, p, p, i, i, i, i, i, p, p]
+        fn.argtypes = [p, i, i, p, p, p, p, i, i, i, i, i, i, i, i, i, i, p,
+                       p]
     return lib

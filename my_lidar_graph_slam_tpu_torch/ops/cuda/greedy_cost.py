@@ -193,21 +193,39 @@ def greedy_cost_core(value_map, cells, mask, table, kernel_size: int,
         map_idx = map_idx.contiguous()
     q, nb = cells.shape[0], cells.shape[3]
     h, w = value_map.shape[-2:]
+    if q > 65535:
+        raise ValueError("Q must be at most 65535")
     raw = torch.empty((q, 7), dtype=torch.float32, device=cells.device)
     if q == 0:
         return raw
+    stream = torch.cuda.current_stream(cells.device).cuda_stream
+    scratch = _scratch(cells.device, stream, 1 + q * 7 * table.shape[0])
     lib = _lib()
     status = lib.greedy_cost_f32(
         value_map.data_ptr(), h, w, cells.data_ptr(), mask.data_ptr(),
         None if map_idx is None else map_idx.data_ptr(), table.data_ptr(),
-        q, nb, kernel_size, occupancy_threshold, raw.data_ptr(),
-        torch.cuda.current_stream(cells.device).cuda_stream)
+        q, nb, kernel_size, occupancy_threshold, scratch.data_ptr(),
+        raw.data_ptr(), stream)
     loader.check(status, "greedy_cost")
     greedy_cost_core.launches += 1
     return raw
 
 
 greedy_cost_core.launches = 0
+
+# Per (device, stream): the kernel's int32 scratch (a ticket, then the
+# [Q, 7, C] class counts). Every launch leaves it zeroed for the next one
+# on its stream, and two streams never share one; it grows (zeroed anew)
+# when a call needs more.
+_scratches = {}
+
+
+def _scratch(device, stream: int, size: int) -> torch.Tensor:
+    buf = _scratches.get((device, stream))
+    if buf is None or buf.numel() < size:
+        buf = torch.zeros(max(size, 4096), dtype=torch.int32, device=device)
+        _scratches[(device, stream)] = buf
+    return buf
 
 
 def _lib():
@@ -216,7 +234,8 @@ def _lib():
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
         fn.restype = ctypes.c_int
-        fn.argtypes = [p, i, i, p, p, p, p, i, i, i, ctypes.c_float, p, p]
+        fn.argtypes = [p, i, i, p, p, p, p, i, i, i, ctypes.c_float, p, p,
+                       p]
     return lib
 
 

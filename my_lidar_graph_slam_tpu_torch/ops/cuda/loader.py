@@ -4,8 +4,9 @@ Each source is compiled by ``nvcc`` for Hopper (``sm_90a``) into its own
 shared library with a plain C interface and loaded with ``ctypes``. No
 PyTorch headers are involved, so a build takes seconds. Libraries are
 built at first use into ``my_lidar_graph_slam_tpu_torch/build/`` (ignored
-by git), named by a hash of their source, so an edited source is rebuilt
-and an unchanged one is reused. :func:`build_all` compiles every source in
+by git), named by a hash of their source and of every ``csrc/*.cuh``
+header it includes, so an edited source or header is rebuilt and an
+unchanged one is reused. :func:`build_all` compiles every source in
 parallel, one ``nvcc`` process each.
 
 No JAX counterpart: Pallas kernels compile inside ``jax.jit``.
@@ -16,6 +17,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -27,7 +29,8 @@ CSRC = os.path.join(_PKG, "csrc")
 BUILD = os.path.join(_PKG, "build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
-SOURCES = ("correlate", "greedy_cost")
+SOURCES = ("correlate", "greedy_cost", "empty")
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+\.cuh)"', re.M)
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -44,10 +47,23 @@ def _nvcc() -> str:
     return path
 
 
+def _digest(path: str, seen: set, h) -> None:
+    """Feed ``path`` and, once each, the local headers it includes (and
+    theirs) into the hash ``h``."""
+    with open(path, "rb") as f:
+        text = f.read()
+    h.update(text)
+    for header in _INCLUDE.findall(text):
+        name = header.decode()
+        if name not in seen:
+            seen.add(name)
+            _digest(os.path.join(CSRC, name), seen, h)
+
+
 def _target(name: str) -> str:
-    with open(os.path.join(CSRC, name + ".cu"), "rb") as f:
-        digest = hashlib.sha1(f.read()).hexdigest()[:12]
-    return os.path.join(BUILD, f"lib{name}-{digest}.so")
+    h = hashlib.sha1()
+    _digest(os.path.join(CSRC, name + ".cu"), set(), h)
+    return os.path.join(BUILD, f"lib{name}-{h.hexdigest()[:12]}.so")
 
 
 def _start(name: str):

@@ -21,7 +21,8 @@ from my_lidar_graph_slam_tpu.ops import grid as jgrid
 from my_lidar_graph_slam_tpu.ops import matchers_mxu, raycast as jraycast
 from my_lidar_graph_slam_tpu.ops.pallas import correlate_mxu as cm
 from my_lidar_graph_slam_tpu.ops.pallas import greedy_cost_mxu as gc
-from my_lidar_graph_slam_tpu_torch.ops.cuda import correlate, greedy_cost
+from my_lidar_graph_slam_tpu_torch.ops.cuda import (correlate, greedy_cost,
+                                                    loader)
 
 K1_ATOL = 1e-4
 K2_COST_ATOL = 1e-4
@@ -269,3 +270,53 @@ def test_greedy_cost_out_of_tpu_envelope_matches_fused():
     M = M.astype(np.float32)
     got = _k2(vals, np.asarray(g.origin), poses, R, A, M)
     _assert_k2(got, _fused(g, vals, poses, R, A, M, kernel_size=1))
+
+
+# --------------------------------------------------------------------------
+# K1 launch geometry (computed in Python, launched on the card)
+# --------------------------------------------------------------------------
+
+SHARED_LIMIT = 227 * 1024        # a block's shared memory on an H100
+STATIC_SHARED_LIMIT = 48 * 1024  # without the opt-in attribute
+
+
+@pytest.mark.parametrize("nb,win_x,win_y,q,nt", [
+    (384, 2, 2, 1, 201),          # default config, frontend
+    (384, 20, 20, 4, 401),        # default config, detection
+    (1024, 2, 2, 1, 201),         # beam capacity, frontend
+    (1024, 20, 20, 8, 401),       # beam capacity, detection
+    (1500, 2, 2, 2, 17),          # two beam chunks
+    (64, 40, 30, 1, 3),           # a wide window: several passes
+    (384, 3, 10, 2, 17),          # non-square, several rows per thread
+    (384, 0, 0, 1, 1),            # one cell
+    (1, 1, 1, 1, 1),
+    (4096, 100, 100, 1, 65536),
+])
+def test_window_scores_launch_geometry_fits_the_card(nb, win_x, win_y, q,
+                                                     nt):
+    g = correlate.launch_geometry(nb, win_x, win_y)
+    wxn, wyn = 2 * win_x + 1, 2 * win_y + 1
+    assert 1 <= g.rows <= 8 and g.slots % 32 == 0
+    assert 32 <= g.threads == g.splits * g.slots <= 512
+    # Every output has a slot in some pass.
+    assert g.passes * g.slots >= wxn * -(-wyn // g.rows)
+    assert 1 <= g.chunk <= max(nb, 1)
+    assert g.shared_bytes <= STATIC_SHARED_LIMIT <= SHARED_LIMIT
+    assert 1 <= q * nt < 2 ** 31     # grid.x: one block per (q, theta)
+    assert (g.rows, g.splits) == {(2, 2): (1, 8), (20, 20): (7, 1)}.get(
+        (win_x, win_y), (g.rows, g.splits))
+
+
+def test_library_name_follows_included_headers(tmp_path, monkeypatch):
+    """A library is named by its source and every local header it
+    includes, so editing a shared header rebuilds it."""
+    (tmp_path / "a.cu").write_text('#include "h.cuh"\nint a;\n')
+    (tmp_path / "h.cuh").write_text('#include "g.cuh"\nint h;\n')
+    (tmp_path / "g.cuh").write_text("int g;\n")
+    monkeypatch.setattr(loader, "CSRC", str(tmp_path))
+    before = loader._target("a")
+    assert loader._target("a") == before
+    (tmp_path / "g.cuh").write_text("int g2;\n")
+    after_g = loader._target("a")
+    (tmp_path / "h.cuh").write_text('#include "g.cuh"\nint h2;\n')
+    assert len({before, after_g, loader._target("a")}) == 3
