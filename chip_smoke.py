@@ -14,7 +14,8 @@ with a CUDA card and the CUDA toolkit (``nvcc``). Phases:
    1024^2 and 1536^2 maps). K1: off-map edges, far-out zero-weight beams,
    every beam a border beam, border and interior beams in one row, all
    weights zero (scores exactly 0), 13 live beams (not a multiple of the
-   beam split), NB = 384, ``map_idx`` over stacked maps. K2: kernel_size
+   beam split), NB = 384, ``map_idx`` over stacked maps, and border and
+   interior beams in one row at the 41x41 window. K2: kernel_size
    1, 2 and 3 (the run-time body) at Q = 1 and 8, a 40 m range,
    ``map_idx``; its core must equal the plain core bit for bit. Every
    case is launched twice and the two outputs must be bit-equal (for K2
@@ -26,13 +27,15 @@ with a CUDA card and the CUDA toolkit (``nvcc``). Phases:
    ``config.create_slam``, ``carmen.load`` and ``process_scan``. The launch
    counters are zeroed just before and read just after.
 5. Times: first the launch floor, an empty kernel launched as the kernels
-   are (ctypes, current stream). Then, for every shape the slice gave a
-   kernel, the kernel and its plain version run again on the inputs of the
-   slice's last call at that shape; the outputs are held to phase 3's
-   tolerances (K2 bit-equal) and to a relaunch (bit-equal). The kernel is
-   timed with CUDA events three ways: queued (the card sleeps while the
-   host enqueues 20 calls, so the time is the device's), back to back
-   without that, and alone after a 128 MB write (a cold L2). Beside it:
+   are (ctypes, current stream), back to back and queued. Then, for every
+   shape the slice gave a kernel, the kernel and its plain version run
+   again on the inputs of the slice's last call at that shape; the outputs
+   are held to phase 3's tolerances (K2 bit-equal) and to a relaunch
+   (bit-equal). The kernel is timed with CUDA events three ways: back to
+   back over 20 calls (``ms``; a call shorter than the wrapper's host time
+   is timed at the host's rate), queued (``ms_queued``: the card sleeps
+   while the host enqueues the 20 calls, so the time is the device's), and
+   alone after a 128 MB write (``cold_ms``, a cold L2). Beside it:
    the plain version's time; for K1 the library yardstick,
    ``embedding_bag(mode="sum", per_sample_weights=...)`` over flat indices
    into a zero-padded map (built outside the timed region, in theta chunks
@@ -40,7 +43,7 @@ with a CUDA card and the CUDA toolkit (``nvcc``). Phases:
    least time the card could take: the larger of the bytes the call must
    move (the map cells it reads, counted on these inputs, plus the other
    inputs and the output, each once) over 3.35 TB/s and its operations
-   over 67 TFLOP/s, with its share of the queued time.
+   over 67 TFLOP/s, with its share of the back-to-back and queued times.
 
 The last three lines of standard output are the ``kernels`` JSON line, the
 ``nvidia-smi`` name and power limit, and the result line
@@ -200,6 +203,13 @@ def phase_kernels(torch, dev, nb):
     stack = torch.stack([m2, random_map(gen, 1536, 1536, dev, torch)])
     midx = torch.tensor([0, 1, 1, 0], dtype=torch.int32, device=dev)
     k1("map_idx", stack, ix[:4], iy[:4], w8[:4], 20, map_idx=midx)
+    # Border beams at the 41x41 window (windows crossing an edge) beside
+    # interior ones, some touching an edge from inside.
+    rim = torch.tensor([-20, -1, 0, 20, 1515, 1535, 1536, 1555])
+    bx = rim[torch.randint(0, 8, (2, 401, nb), generator=gen)].int().to(dev)
+    half = (torch.rand((2, 1, nb), generator=gen) < 0.5).to(dev)
+    k1("detection, interior and border", m2, torch.where(half, bx, ix[:2]),
+       iy[:2], w8[:2], 20)
 
     def k2(name, vm, origin, q, k, rmax, map_idx=None, h=1024):
         res = 0.05
@@ -403,12 +413,12 @@ def phase_slice(torch, dev, workdir):
 # --------------------------------------------------------------------------
 
 
-def time_ms(torch, fn, iters=20, queued=True):
-    """Mean ms of ``fn`` over ``iters`` back-to-back calls, by CUDA events.
-    With ``queued`` the card first sleeps (~3 ms) while the host enqueues
-    every call, so the time is the device's alone, without the host's
-    per-call cost; without it, a call shorter than its own enqueue is timed
-    at the host's rate."""
+def time_ms(torch, fn, iters=20, queued=False):
+    """Mean ms of ``fn`` over ``iters`` back-to-back calls, by CUDA events
+    (the ``ms`` of the kernels line): a call shorter than its own enqueue
+    is timed at the host's rate. With ``queued`` the card first sleeps
+    (~3 ms) while the host enqueues every call, so the time is the
+    device's alone, without the host's per-call cost."""
     fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
@@ -448,17 +458,21 @@ def time_cold_ms(torch, fn, iters=10):
 
 def launch_floor(torch):
     """An empty kernel launched as the port's kernels are (ctypes, the
-    current stream): (queued ms, cold single-launch ms)."""
+    current stream): (back-to-back ms, queued ms, cold single-launch
+    ms)."""
     import ctypes
     from my_lidar_graph_slam_tpu_torch.ops.cuda import loader
 
     fn = loader.library("empty").empty_launch
     fn.restype, fn.argtypes = ctypes.c_int, [ctypes.c_void_p]
+    anchor = torch.empty(1, device="cuda")
 
     def launch():
-        loader.check(fn(torch.cuda.current_stream().cuda_stream), "empty")
+        loader.check(fn(loader.stream_handle(anchor)), "empty")
 
-    return time_ms(torch, launch, iters=200), time_cold_ms(torch, launch)
+    return time_ms(torch, launch, iters=200), \
+        time_ms(torch, launch, iters=200, queued=True), \
+        time_cold_ms(torch, launch)
 
 
 def k1_library(torch, vm, ix, iy, w, wx, wy, map_idx, max_elems=150e6):
@@ -569,15 +583,17 @@ def phase_times(torch, rec, stats, slam, errs):
     """Per main-path shape of each kernel, on the inputs of the slice's last
     call at that shape: the kernel against its plain version (held to phase
     3's tolerances; K2 bit-equal) and against its own relaunch (bit-equal);
-    its time queued, back to back, and alone with a cold
-    L2; the plain version's time; K1's library yardstick; the bound and its
-    share; and the floor of an empty launch."""
+    its time back to back, queued, and alone with a cold L2; the plain
+    version's time; K1's library yardstick; the bound and its share; and
+    the floor of an empty launch."""
     from my_lidar_graph_slam_tpu_torch.ops.cuda import correlate, greedy_cost
 
-    floor_ms, floor_cold_ms = launch_floor(torch)
+    floor_ms, floor_queued_ms, floor_cold_ms = launch_floor(torch)
     log(f"  launch floor (empty kernel, ctypes, current stream): "
-        f"{floor_ms:.5f} ms queued, {floor_cold_ms:.5f} ms alone")
+        f"{floor_ms:.5f} ms back to back, {floor_queued_ms:.5f} ms queued, "
+        f"{floor_cold_ms:.5f} ms alone")
     common = {"launch_floor_ms": floor_ms,
+              "launch_floor_queued_ms": floor_queued_ms,
               "launch_floor_cold_ms": floor_cold_ms}
     rows = []
     for (path, q), (args, kw) in sorted(rec[0].calls.items()):
@@ -605,7 +621,8 @@ def phase_times(torch, rec, stats, slam, errs):
         read = cells_read(torch, vm, map_idx, [(ix, iy, live, wx, wy)])
         moved = 4 * read + 8 * n_live + nbytes(w, map_idx, out)
         b, by = bound_ms(moved, ops)
-        ms = time_ms(torch, kernel)
+        ms, ms_queued = time_ms(torch, kernel), time_ms(torch, kernel,
+                                                        queued=True)
         g = correlate.launch_geometry(nb, wx, wy)
         rows.append({
             "name": f"window_scores[{path} Q={q}]", "route": "cuda",
@@ -616,12 +633,12 @@ def phase_times(torch, rec, stats, slam, errs):
             "max_abs_err": err,
             "edge_cases_max_abs_err": errs["window_scores"],
             "bit_equal_on_relaunch": True,
-            "ms": ms,
-            "ms_back_to_back": time_ms(torch, kernel, queued=False),
+            "ms": ms, "ms_queued": ms_queued,
             "cold_ms": time_cold_ms(torch, kernel),
             "plain_ms": time_ms(torch, lambda: correlate.window_scores_plain(
                 vm, ix, iy, w, wx, wy, map_idx), iters=3),
             "bound_ms": b, "bound_by": by, "bound_share": share(b, ms),
+            "bound_share_queued": share(b, ms_queued),
             "library_ms": lib_ms,
             "library": "torch.nn.functional.embedding_bag(mode='sum', "
                        "per_sample_weights) over a zero-padded map",
@@ -667,7 +684,8 @@ def phase_times(torch, rec, stats, slam, errs):
         moved = 4 * read + 4 * 12 * n_masked + \
             nbytes(mask, table, map_idx, raw)
         b, by = bound_ms(moved, ops)
-        ms = time_ms(torch, kernel)
+        ms, ms_queued = time_ms(torch, kernel), time_ms(torch, kernel,
+                                                        queued=True)
         rows.append({
             "name": f"greedy_cost[{path} Q={q}]", "route": "cuda",
             "source": "my_lidar_graph_slam_tpu_torch/csrc/greedy_cost.cu",
@@ -677,14 +695,14 @@ def phase_times(torch, rec, stats, slam, errs):
             "max_abs_err": err,
             "edge_cases_max_abs_err": errs["greedy_cost"],
             "bit_equal_to_plain": True, "bit_equal_on_relaunch": True,
-            "ms": ms,
-            "ms_back_to_back": time_ms(torch, kernel, queued=False),
+            "ms": ms, "ms_queued": ms_queued,
             "cold_ms": time_cold_ms(torch, kernel),
             "plain_ms": time_ms(torch, lambda:
                                 greedy_cost.greedy_cost_core_plain(
                                     vm, cells, mask, table, k, thr,
                                     map_idx), iters=5),
             "bound_ms": b, "bound_by": by, "bound_share": share(b, ms),
+            "bound_share_queued": share(b, ms_queued),
             "library_ms": None,
             "library": "none: a minimum over each beam's usable cells, then "
                        "a histogram of the minima per pose, is no single "
@@ -744,12 +762,14 @@ def main() -> int:
     for r in rows:
         lib = "n/a" if r["library_ms"] is None else \
             f"{r['library_ms']:.4f} ms"
-        log(f"  {r['name']}: {r['ms']:.5f} ms queued, "
-            f"{r['ms_back_to_back']:.5f} ms back to back, "
+        log(f"  {r['name']}: {r['ms']:.5f} ms back to back, "
+            f"{r['ms_queued']:.5f} ms queued, "
             f"{r['cold_ms']:.5f} ms cold L2 (plain {r['plain_ms']:.3f} ms, "
             f"library {lib}, bound {r['bound_ms']:.5f} ms by "
-            f"{r['bound_by']} = {r['bound_share']:.3f} of the time, "
-            f"launch floor {r['launch_floor_ms']:.5f} ms), "
+            f"{r['bound_by']} = {r['bound_share']:.3f} of the time back to "
+            f"back, {r['bound_share_queued']:.3f} queued, "
+            f"launch floor {r['launch_floor_ms']:.5f} ms back to back, "
+            f"{r['launch_floor_queued_ms']:.5f} ms queued), "
             f"{r['launches']} launches, max|err| vs plain "
             f"{r['max_abs_err']:.3g} {json.dumps(r['shape'])}")
     log(f"[5/5] times: ok in {time.perf_counter() - t0:.1f} s")

@@ -143,18 +143,20 @@ def window_scores(value_map, ix, iy, beam_weight, win_x: int, win_y: int,
         return window_scores_plain(value_map, ix, iy, beam_weight, win_x,
                                    win_y, map_idx)
     _check_inputs(value_map, ix, iy, beam_weight, map_idx)
-    if value_map.device.type != "cuda":
-        raise ValueError(f"unsupported device {value_map.device}")
     q, nt, nb = ix.shape
     h, w = value_map.shape[-2:]
+    # The grid is one block per (q, theta), and a beam record holds its
+    # window's corner as an int32 offset into one map.
     if q * nt >= 2 ** 31 or h * w >= 2 ** 31:
         raise ValueError("Q * NT and H * W must each be below 2^31")
+    if value_map.device.type != "cuda":
+        raise ValueError(f"unsupported device {value_map.device}")
     value_map, ix, iy, beam_weight = (t.contiguous() for t in
                                       (value_map, ix, iy, beam_weight))
     if map_idx is not None:
         map_idx = map_idx.contiguous()
-    out = torch.empty((q, nt, 2 * win_x + 1, 2 * win_y + 1),
-                      dtype=torch.float32, device=ix.device)
+    out = ix.new_empty((q, nt, 2 * win_x + 1, 2 * win_y + 1),
+                       dtype=torch.float32)
     if out.numel() == 0:
         return out
     g = launch_geometry(nb, win_x, win_y)
@@ -165,7 +167,7 @@ def window_scores(value_map, ix, iy, beam_weight, win_x: int, win_y: int,
         None if map_idx is None else map_idx.data_ptr(),
         q, nt, nb, win_x, win_y, g.rows, g.splits, g.slots, g.chunk,
         int(g.stage), out.data_ptr(),
-        torch.cuda.current_stream(ix.device).cuda_stream)
+        loader.stream_handle(ix))
     loader.check(status, "window_scores")
     window_scores.launches += 1
     return out

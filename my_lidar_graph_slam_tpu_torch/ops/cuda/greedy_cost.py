@@ -195,10 +195,10 @@ def greedy_cost_core(value_map, cells, mask, table, kernel_size: int,
     h, w = value_map.shape[-2:]
     if q > 65535:
         raise ValueError("Q must be at most 65535")
-    raw = torch.empty((q, 7), dtype=torch.float32, device=cells.device)
+    raw = cells.new_empty((q, 7), dtype=torch.float32)
     if q == 0:
         return raw
-    stream = torch.cuda.current_stream(cells.device).cuda_stream
+    stream = loader.stream_handle(cells)
     scratch = _scratch(cells.device, stream, 1 + q * 7 * table.shape[0])
     lib = _lib()
     status = lib.greedy_cost_f32(

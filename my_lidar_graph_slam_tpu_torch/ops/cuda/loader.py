@@ -23,6 +23,8 @@ import subprocess
 import threading
 from typing import Dict, List
 
+import torch
+
 _PKG = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 CSRC = os.path.join(_PKG, "csrc")
@@ -109,6 +111,20 @@ def library(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(_target(name))
             _libs[name] = lib
         return lib
+
+
+# ``torch.cuda.current_stream(device).cuda_stream`` builds a Stream object
+# on every call, a large part of a kernel wrapper's host time; PyTorch's
+# own generated code reads the raw handle directly.
+_raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+
+
+def stream_handle(tensor) -> int:
+    """The raw handle of the current CUDA stream of ``tensor``'s device."""
+    index = tensor.get_device()
+    if _raw_stream is not None:
+        return _raw_stream(index)
+    return torch.cuda.current_stream(index).cuda_stream
 
 
 def check(status: int, what: str) -> None:

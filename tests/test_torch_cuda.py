@@ -110,10 +110,17 @@ def _k1_case(case, gen):
     elif case == "map_idx_two_maps":
         q = 4
         midx = torch.tensor([1, 0, 0, 1], dtype=torch.int32)
+    elif case.endswith("detection_window"):
+        # The default config's 41 x 41 loop-detection window.
+        q, nt, win_x, win_y = 2, 9, 20, 20
+        if case == "map_idx_detection_window":
+            q = 4
+            midx = torch.tensor([1, 0, 0, 1], dtype=torch.int32)
     vm = torch.rand((2, h, w) if midx is not None else (h, w), generator=gen)
     ix, iy = _cells(gen, q, nt, nb, h, w)
-    ix = ix.clamp(win_x + 1, w - win_x - 2)
-    iy = iy.clamp(win_y + 1, h - win_y - 2)
+    # Interior windows, some touching an edge of the map.
+    ix = ix.clamp(win_x, w - win_x - 1)
+    iy = iy.clamp(win_y, h - win_y - 1)
     wgt = (torch.rand((q, nb), generator=gen) < 0.5).float() * \
         torch.rand((q, nb), generator=gen)
     if case == "all_weights_zero":
@@ -121,12 +128,12 @@ def _k1_case(case, gen):
     elif case == "live_not_multiple_of_split":
         wgt.zero_()
         wgt[:, torch.randperm(nb, generator=gen)[:13]] = 1.0
-    elif case in ("all_border", "interior_and_border"):
+    elif case.startswith(("all_border", "interior_and_border")):
         # Cells within the window of an edge: every window crosses it.
         edge = torch.tensor([-win_x, 0, w - 1, w - 1 + win_x])
         pick = torch.randint(0, 4, (q, nt, nb), generator=gen)
         bx = edge[pick]
-        if case == "interior_and_border":
+        if case.startswith("interior_and_border"):
             half = torch.rand((q, 1, nb), generator=gen) < 0.5
             bx = torch.where(half.expand_as(bx), ix.long(), bx)
         ix = bx.int()
@@ -139,7 +146,9 @@ K1_CASES = ["nb384_frontend_window", "nb1024_detection_window",
             "nb1500_two_chunks", "nt_odd_201", "nt_1", "non_square_window",
             "wide_window_many_passes", "map_idx_two_maps",
             "all_weights_zero", "live_not_multiple_of_split", "all_border",
-            "interior_and_border"]
+            "interior_and_border", "all_border_detection_window",
+            "interior_and_border_detection_window",
+            "map_idx_detection_window"]
 
 
 @pytest.mark.parametrize("case", K1_CASES)

@@ -12,7 +12,7 @@ SOURCES = sorted(p for p in PKG.rglob("*.py")
                  if "build" not in p.relative_to(PKG).parts) + \
     [ROOT / "chip_smoke.py", ROOT / "tools" / "profile_torch_slice.py",
      ROOT / "tools" / "replay_detections_torch.py",
-     ROOT / "tools" / "kernel_ab.py", ROOT / "tools" / "k1_line_model.py"]
+     ROOT / "tools" / "kernel_ab.py"]
 FORBIDDEN = ("jax", "jaxlib", "my_lidar_graph_slam_tpu")
 
 

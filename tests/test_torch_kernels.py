@@ -302,9 +302,26 @@ def test_window_scores_launch_geometry_fits_the_card(nb, win_x, win_y, q,
     assert g.passes * g.slots >= wxn * -(-wyn // g.rows)
     assert 1 <= g.chunk <= max(nb, 1)
     assert g.shared_bytes <= STATIC_SHARED_LIMIT <= SHARED_LIMIT
-    assert 1 <= q * nt < 2 ** 31     # grid.x: one block per (q, theta)
     assert (g.rows, g.splits) == {(2, 2): (1, 8), (20, 20): (7, 1)}.get(
         (win_x, win_y), (g.rows, g.splits))
+
+
+@pytest.mark.parametrize("map_shape,cells_shape", [
+    ((46341, 46341), (1, 1, 4)),      # H * W = 2^31 + 1 cells
+    ((2, 2), (2, 2 ** 30, 1)),        # Q * NT = 2^31 blocks
+])
+def test_window_scores_refuses_int32_overflow(map_shape, cells_shape):
+    """The kernel addresses a map with int32 offsets and launches one block
+    per (q, theta): the wrapper refuses larger inputs before any launch.
+    Meta tensors carry the shapes without memory."""
+    q, _, nb = cells_shape
+    vm = torch.empty(map_shape, dtype=torch.float32, device="meta")
+    ix = torch.empty(cells_shape, dtype=torch.int32, device="meta")
+    w = torch.empty((q, nb), dtype=torch.float32, device="meta")
+    before = correlate.window_scores.launches
+    with pytest.raises(ValueError, match="below 2"):
+        correlate.window_scores(vm, ix, ix, w, 1, 1)
+    assert correlate.window_scores.launches == before
 
 
 def test_library_name_follows_included_headers(tmp_path, monkeypatch):

@@ -1,25 +1,27 @@
 #!/usr/bin/env python3
-"""Time the port's two CUDA kernels of two checkouts on one card.
+"""Time the port's two CUDA kernels of this checkout against those of other
+checkouts on one card, on the inputs the main path gives them.
 
 Usage, on a machine with the card, from the repository root::
 
     # into any git-ignored directory of the checkout:
     git archive <commit> | tar -x -C _archive_check/other
-    python3 tools/kernel_ab.py _archive_check/other
+    python3 tools/kernel_ab.py _archive_check/other [OTHER ...]
 
-Runs four fresh processes in turn, OTHER, THIS, THIS, OTHER; each builds its
-checkout's kernels from that checkout's ``csrc/`` and times K1
-(``window_scores``) and K2 (``greedy_cost_core``) through that checkout's
-wrappers, on the same inputs made from a seed at the shapes of the default
-config's main path (K1: frontend Q=1, NT=201, 5x5 window on a 1024^2 map;
-detection Q=1/2/4, NT=401, 41x41 window on a 1536^2 map; K2 at the same Q
-and maps, kernel_size 1; NB = 384 with 300 live beams, as the slice's scans
-give). Each time is taken three ways with the timers of ``chip_smoke.py``:
-queued, back to back, and alone after a cold L2; beside them, the host's
-time per call while the card is busy. Each process also holds
-its kernels against its plain versions (K1 within chip_smoke's tolerance,
-K2 bit-equal) and fails otherwise. Prints one JSON line per process, then
-a JSON summary (each time the mean of the two runs of its checkout).
+First one process of this checkout runs phase 4 of ``chip_smoke.py`` (the
+slice, with its recorders) and saves the arguments of the slice's last call
+at each shape of each kernel: K1 (``window_scores``) and K2
+(``greedy_cost_core``) at the frontend (Q=1) and at detection (Q=1/2/4).
+Then, for each other checkout, four fresh processes in turn, OTHER, THIS,
+THIS, OTHER: each builds its checkout's kernels from that checkout's
+``csrc/``, calls them through that checkout's wrappers on the saved inputs,
+holds them against the plain versions (K1 within chip_smoke's tolerance, K2
+bit-equal) and times them with chip_smoke's timers: back to back (``ms``,
+as chip_smoke's ``ms``), queued (``ms_queued``, the device's time), alone
+after a cold L2, and the host's time per call while the card is busy.
+Prints the slice's statistics, one JSON line per process, and for each
+other checkout a JSON summary in which each number is the mean of a side's
+two runs. About 2 minutes for the recording and 1 per other checkout.
 """
 
 from __future__ import annotations
@@ -29,10 +31,10 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 
 THIS = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SEED = 0
-NB, LIVE = 384, 300
+KEYS = ("host_ms", "ms", "ms_queued", "cold_ms")
 
 
 def _chip_smoke():
@@ -43,36 +45,19 @@ def _chip_smoke():
     return mod
 
 
-def inputs(torch, dev):
-    """{name: (kernel, args)} at the main path's shapes, from SEED."""
+def record(path: str) -> None:
+    """Run the slice with chip_smoke's recorders; save {kernel: {shape:
+    (args, kwargs)}} of the last call at each shape to ``path``."""
+    import torch
+
+    sys.path.insert(0, THIS)
     cs = _chip_smoke()
-    gen = torch.Generator().manual_seed(SEED)
-    out = {}
-    maps = {1024: cs.random_map(gen, 1024, 1024, dev, torch),
-            1536: cs.random_map(gen, 1536, 1536, dev, torch)}
-    live = torch.zeros((4, NB), dtype=torch.float32)
-    live[:, :LIVE] = 1.0
-    for path, q, nt, win, size in (("frontend", 1, 201, 2, 1024),
-                                   ("detection", 1, 401, 20, 1536),
-                                   ("detection", 2, 401, 20, 1536),
-                                   ("detection", 4, 401, 20, 1536)):
-        ix, iy = cs.arc_cells(gen, q, nt, NB, size, size, 250, dev, torch)
-        out[f"window_scores[{path} Q={q}]"] = (
-            "window_scores", (maps[size], ix, iy, live[:q].to(dev), win, win))
-    # K2: a map of occupied walls (0.9) in free space (0.05), as phase 3.
-    for path, q, size in (("frontend", 1, 1024), ("detection", 1, 1536),
-                          ("detection", 2, 1536), ("detection", 4, 1536)):
-        occ = (torch.rand((size, size), generator=gen) < 0.15).float()
-        occ = torch.nn.functional.max_pool2d(occ[None, None], 3, 1, 1)[0, 0]
-        vm = torch.where(occ > 0, torch.full_like(occ, 0.9),
-                         torch.full_like(occ, 0.05)).to(dev)
-        cells = torch.randint(size // 4, 3 * size // 4, (q, 4, 3, NB),
-                              generator=gen, dtype=torch.int32).to(dev)
-        mask = torch.zeros((q, NB), dtype=torch.bool)
-        mask[:, :LIVE] = True
-        out[f"greedy_cost[{path} Q={q}]"] = (
-            "greedy_cost_core", (vm, cells, mask.to(dev), None, 1, 0.1))
-    return out
+    with tempfile.TemporaryDirectory(dir=THIS, prefix="kernel_ab_") as work:
+        stats, rec, _ = cs.phase_slice(torch, torch.device("cuda"), work)
+    torch.save({r.name: {f"{p} Q={q}": (list(args), kw)
+                         for (p, q), (args, kw) in r.calls.items()}
+                for r in rec}, path)
+    print(json.dumps({"slice": stats}), flush=True)
 
 
 def host_ms(torch, fn, iters=200):
@@ -91,7 +76,7 @@ def host_ms(torch, fn, iters=200):
     return 1e3 * (t1 - t0) / iters
 
 
-def child(root: str) -> None:
+def child(root: str, path: str) -> None:
     import torch
 
     sys.path.insert(0, root)
@@ -101,64 +86,85 @@ def child(root: str) -> None:
             os.path.abspath(root)):
         raise RuntimeError(f"imported the port from {loader.__file__}")
     cs = _chip_smoke()
-    dev = torch.device("cuda")
     loader.build_all(["correlate", "greedy_cost"])
+    for name, text in getattr(loader, "ptxas_report", {}).items():
+        for line in text.splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"{root} {name}: {line.strip()}", file=sys.stderr)
+    saved = torch.load(path, map_location="cuda", weights_only=True)
+    kernels = {
+        "window_scores": ("window_scores", correlate.window_scores,
+                          correlate.window_scores_plain),
+        "greedy_cost_core": ("greedy_cost", greedy_cost.greedy_cost_core,
+                             greedy_cost.greedy_cost_core_plain)}
     rows = []
-    for name, (fn_name, args) in inputs(torch, dev).items():
-        if fn_name == "window_scores":
-            fn, plain = correlate.window_scores, correlate.window_scores_plain
-        else:
-            fn = greedy_cost.greedy_cost_core
-            plain = greedy_cost.greedy_cost_core_plain
-            table = greedy_cost.class_table(0.05, 1, 1.0, dev)
-            args = args[:3] + (table,) + args[4:]
-        got, ref = fn(*args), plain(*args)
-        torch.cuda.synchronize()
-        if fn_name == "window_scores":
-            cs.check_k1(name, got, ref, torch)
-        elif not torch.equal(got, ref):
-            raise AssertionError(f"{name}: not bit-equal to the plain core")
-        rows.append({"name": name,
-                     "host_ms": host_ms(torch, lambda: fn(*args)),
-                     "ms": cs.time_ms(torch, lambda: fn(*args)),
-                     "ms_back_to_back": cs.time_ms(torch, lambda: fn(*args),
-                                                   queued=False),
-                     "cold_ms": cs.time_cold_ms(torch, lambda: fn(*args))})
+    for key, (label, fn, plain) in kernels.items():
+        for shape, (args, kw) in sorted(saved[key].items()):
+            name = f"{label}[{shape}]"
+
+            def call():
+                return fn(*args, **kw)
+
+            got, again, ref = call(), call(), plain(*args, **kw)
+            torch.cuda.synchronize()
+            if not torch.equal(got, again):
+                raise AssertionError(f"{name}: two launches differ")
+            if key == "window_scores":
+                cs.check_k1(name, got, ref, torch)
+            elif not torch.equal(got, ref):
+                raise AssertionError(f"{name}: not bit-equal to the plain "
+                                     "core")
+            rows.append({"name": name, "host_ms": host_ms(torch, call),
+                         "ms": cs.time_ms(torch, call),
+                         "ms_queued": cs.time_ms(torch, call, queued=True),
+                         "cold_ms": cs.time_cold_ms(torch, call)})
     print(json.dumps({"root": root, "device": torch.cuda.get_device_name(0),
                       "rows": rows}), flush=True)
 
 
+def _run(args, timeout):
+    out = subprocess.run([sys.executable, os.path.abspath(__file__), *args],
+                         capture_output=True, text=True, timeout=timeout)
+    sys.stderr.write(out.stderr[-4000:])
+    if out.returncode != 0:
+        print(f"kernel_ab: {' '.join(args)} failed", file=sys.stderr)
+        return None
+    line = out.stdout.strip().splitlines()[-1]
+    print(line, flush=True)
+    return json.loads(line)
+
+
 def main() -> int:
-    if len(sys.argv) == 3 and sys.argv[1] == "--child":
-        child(sys.argv[2])
+    if len(sys.argv) == 3 and sys.argv[1] == "--record":
+        record(sys.argv[2])
         return 0
-    if len(sys.argv) != 2:
+    if len(sys.argv) == 4 and sys.argv[1] == "--child":
+        child(sys.argv[2], sys.argv[3])
+        return 0
+    if len(sys.argv) < 2 or sys.argv[1].startswith("-"):
         print(__doc__, file=sys.stderr)
         return 2
-    other = os.path.abspath(sys.argv[1])
-    runs = []
-    for root in (other, THIS, THIS, other):
-        out = subprocess.run([sys.executable, os.path.abspath(__file__),
-                              "--child", root], capture_output=True,
-                             text=True, timeout=600)
-        sys.stderr.write(out.stderr[-4000:])
-        if out.returncode != 0:
-            print(f"kernel_ab: the run of {root} failed", file=sys.stderr)
+    others = [os.path.abspath(a) for a in sys.argv[1:]]
+    with tempfile.TemporaryDirectory(dir=THIS, prefix="kernel_ab_") as tmp:
+        path = os.path.join(tmp, "inputs.pt")
+        if _run(["--record", path], timeout=900) is None:
             return 1
-        line = out.stdout.strip().splitlines()[-1]
-        print(line, flush=True)
-        runs.append(json.loads(line))
-    summary = {}
-    for run in runs:
-        side = "other" if run["root"] == other else "this"
-        for r in run["rows"]:
-            s = summary.setdefault(r["name"], {})
-            for key in ("host_ms", "ms", "ms_back_to_back", "cold_ms"):
-                s.setdefault(f"{side}_{key}", []).append(r[key])
-    for s in summary.values():
-        for key in list(s):
-            s[key] = sum(s[key]) / len(s[key])
-    print(json.dumps({"other": other, "summary": summary}))
+        for other in others:
+            summary = {}
+            for root in (other, THIS, THIS, other):
+                run = _run(["--child", root, path], timeout=600)
+                if run is None:
+                    return 1
+                side = "other" if root == other else "this"
+                for r in run["rows"]:
+                    s = summary.setdefault(r["name"], {})
+                    for key in KEYS:
+                        s.setdefault(f"{side}_{key}", []).append(r[key])
+            for s in summary.values():
+                for key in list(s):
+                    s[key] = sum(s[key]) / len(s[key])
+            print(json.dumps({"other": other, "summary": summary}),
+                  flush=True)
     return 0
 
 
