@@ -25,25 +25,49 @@ with a CUDA card and the CUDA toolkit (``nvcc``). Phases:
    launcher_settings_default.json``, synchronous backend) over a synthetic
    intel-like world, 2 laps at 0.08 m steps, through ``config.load``,
    ``config.create_slam``, ``carmen.load`` and ``process_scan``. The launch
-   counters are zeroed just before and read just after.
-5. Times: first the launch floor, an empty kernel launched as the kernels
-   are (ctypes, current stream), back to back and queued. Then, for every
-   shape the slice gave a kernel, the kernel and its plain version run
-   again on the inputs of the slice's last call at that shape; the outputs
-   are held to phase 3's tolerances (K2 bit-equal) and to a relaunch
-   (bit-equal). The kernel is timed with CUDA events three ways: back to
-   back over 20 calls (``ms``; a call shorter than the wrapper's host time
-   is timed at the host's rate), queued (``ms_queued``: the card sleeps
-   while the host enqueues the 20 calls, so the time is the device's), and
-   alone after a 128 MB write (``cold_ms``, a cold L2). Beside it:
-   the plain version's time; for K1 the library yardstick,
-   ``embedding_bag(mode="sum", per_sample_weights=...)`` over flat indices
-   into a zero-padded map (built outside the timed region, in theta chunks
-   of at most 1.5e8 indices), held to K1's tolerance as well; and the
-   least time the card could take: the larger of the bytes the call must
-   move (the map cells it reads, counted on these inputs, plus the other
-   inputs and the output, each once) over 3.35 TB/s and its operations
-   over 67 TFLOP/s, with its share of the back-to-back and queued times.
+   counters are zeroed just before and read just after, as in phases 6
+   and 7; each of them fails if a kernel did not launch.
+6. Launcher: ``launcher.run`` (the entry point of ``python -m
+   my_lidar_graph_slam_tpu_torch.launcher``) on
+   ``configs/launcher_settings_robust.json`` verbatim (up to 3 candidate
+   maps per detection pass, DCS), in replay mode with chunks of 16
+   keyframes, on phase 4's log and ground truth. Every artifact must
+   exist; the checkpoint and pose graph are read back by the port's
+   loaders, the PNGs by its PNG reader; at least one loop closure, at
+   least one detection pass over a stack of two or more maps, a finite
+   ATE.
+7. Async: the default settings (synchronous backend) over the log's first
+   800 scans, four runs in turns (blocking, pipelined, pipelined,
+   blocking); node and edge counts equal, node poses within 1e-5,
+   latest-map values within 1e-4, each run against the first.
+   The pipelined frontend notifies the backend with the graph one
+   keyframe behind, so from the first loop candidate on the two runs
+   search from different nodes and part by design (the JAX package's
+   parity test has no backend for that reason): the prefix ends before
+   the first candidate, and the phase fails if the blocking run closed a
+   loop in it.
+5. Times (run last, on the inputs recorded by phases 4, 6 and 7): first
+   the launch floor, an empty kernel launched as the kernels are (ctypes,
+   current stream), back to back and queued. Then, for every shape that
+   any of those runs gave a kernel, keyed by (path, M, Q), the kernel and
+   its plain version run again on the inputs of the last call at that
+   shape in the first phase that gave it, and the row counts the launches
+   at that shape in each phase's run; the outputs are held to
+   phase 3's tolerances (K2 bit-equal) and to a relaunch (bit-equal). The
+   kernel is timed with CUDA events three ways: back to back over 20 calls
+   (``ms``; a call shorter than the wrapper's host time is timed at the
+   host's rate), queued (``ms_queued``: the card sleeps while the host
+   enqueues the 20 calls, so the time is the device's), and alone after a
+   128 MB write (``cold_ms``, a cold L2). Beside it: the plain version's
+   time; for K1 the library yardstick, ``embedding_bag(mode="sum",
+   per_sample_weights=...)`` over flat indices into a zero-padded map
+   (built outside the timed region, one theta chunk of at most 1.5e8
+   indices at a time, the time summed over the chunks), held to K1's
+   tolerance as well; and the least time the card could take: the larger
+   of the bytes the call must move (the map cells it reads, counted on
+   these inputs, plus the other inputs and the output, each once) over
+   3.35 TB/s and its operations over 67 TFLOP/s, with its share of the
+   back-to-back and queued times.
 
 The last three lines of standard output are the ``kernels`` JSON line, the
 ``nvidia-smi`` name and power limit, and the result line
@@ -64,6 +88,12 @@ import numpy as np
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 SETTINGS = os.path.join(REPO, "configs", "launcher_settings_default.json")
+ROBUST = os.path.join(REPO, "configs", "launcher_settings_robust.json")
+LOG_NAME, GT_NAME = "intel2.clf", "intel2_gt.npz"
+REPLAY_CHUNK = 16
+# Phase 7's prefix of the log: on the ground truth the first loop
+# candidate of the default settings appears at scan 840.
+ASYNC_SCANS = 800
 SEED = 0
 LAPS = 2
 STEP = 0.08
@@ -274,10 +304,12 @@ def phase_kernels(torch, dev, nb):
 
 
 class Recorder:
-    """Stands in for a kernel wrapper during the slice: keeps the arguments
-    of the last call at each shape, keyed by (path, Q), and counts the calls
-    at each shape. The path is "frontend" for a call on the latest map and
-    "detection" for one on a local map (the two have different widths)."""
+    """Stands in for a kernel wrapper during a run: keeps the arguments of
+    the last call at each shape, keyed by (path, M, Q), and counts the
+    calls at each shape. The path is "frontend" for a call on the latest
+    map and "detection" for one on a local map (the two have different
+    widths; a stacked detection map [M, H, W] has a local map's width). M
+    is the depth of a stacked map, 1 for a single map."""
 
     def __init__(self, module, name, latest_width):
         self.module, self.name = module, name
@@ -300,7 +332,8 @@ class Recorder:
     def __call__(self, *args, **kwargs):
         path = "frontend" if args[0].shape[-1] == self.latest_width \
             else "detection"
-        key = (path, args[1].shape[0])
+        m = args[0].shape[0] if args[0].dim() == 3 else 1
+        key = (path, m, args[1].shape[0])
         self.calls[key] = (args, kwargs)
         self.counts[key] = self.counts.get(key, 0) + 1
         return self.fn(*args, **kwargs)
@@ -309,33 +342,25 @@ class Recorder:
         setattr(self.module, self.name, self.fn)
 
 
-def ate(est, est_t, gt, gt_t, align):
-    """Translational ATE RMSE after nearest-timestamp association; with
-    ``align`` the best-fit SE(2) transform is applied first, else est is
-    anchored so its first pose coincides with the ground truth's."""
-    hi = np.clip(np.searchsorted(gt_t, est_t), 1, len(gt_t) - 1)
-    gi = np.where(np.abs(gt_t[hi] - est_t) < np.abs(gt_t[hi - 1] - est_t),
-                  hi, hi - 1)
-    g = gt[gi]
-    if align:
-        e, t = est[:, :2], g[:, :2]
-        me, mt = e.mean(0), t.mean(0)
-        u, _, vt = np.linalg.svd((e - me).T @ (t - mt))
-        d = np.sign(np.linalg.det(vt.T @ u.T))
-        r = vt.T @ np.diag([1.0, d]) @ u.T
-        p = (e - me) @ r.T + mt
-    else:
-        th = g[0, 2] - est[0, 2]
-        c, s = np.cos(th), np.sin(th)
-        rel = est[:, :2] - est[0, :2]
-        p = g[0, :2] + rel @ np.array([[c, -s], [s, c]]).T
+def ate_anchored(est, est_t, gt, gt_t):
+    """Translational ATE RMSE with est anchored so that its first pose
+    coincides with the ground truth's (after nearest-timestamp
+    association); the aligned figure is ``utils/ate.py``'s."""
+    from my_lidar_graph_slam_tpu_torch.utils import ate
+
+    ei, gi = ate.associate(est_t, gt_t)
+    e, g = est[ei], gt[gi]
+    th = g[0, 2] - e[0, 2]
+    c, s = np.cos(th), np.sin(th)
+    p = g[0, :2] + (e[:, :2] - e[0, :2]) @ np.array([[c, -s], [s, c]]).T
     return float(np.sqrt(((p - g[:, :2]) ** 2).sum(1).mean()))
 
 
 def slice_log(workdir):
     """The slice's log: the synthetic intel-like world, LAPS laps at STEP m,
-    seed SEED, written to ``workdir`` and read back through the port's
-    CARMEN reader. Returns (scan records, ground-truth poses, ground-truth
+    seed SEED, written to ``workdir`` (with its ground truth, the
+    launcher's ``--gt`` npz) and read back through the port's CARMEN
+    reader. Returns (scan records, ground-truth poses, ground-truth
     timestamps)."""
     from my_lidar_graph_slam_tpu_torch.io import carmen, synth
     from my_lidar_graph_slam_tpu_torch.sensor.data import RawScan
@@ -343,9 +368,10 @@ def slice_log(workdir):
     sim = synth.SimConfig(step=STEP, seed=SEED)
     scans, gt = synth.simulate(synth.intel_world(),
                                synth.intel_waypoints(laps=LAPS), sim)
-    log_path = os.path.join(workdir, "intel2.clf")
+    log_path = os.path.join(workdir, LOG_NAME)
     synth.write_carmen_log(log_path, scans, max_range=sim.max_range)
     gt_t = np.array([s.timestamp for s in scans])
+    np.savez(os.path.join(workdir, GT_NAME), true_poses=gt, timestamps=gt_t)
     records = [r for r in carmen.load(log_path) if isinstance(r, RawScan)]
     return records, gt, gt_t
 
@@ -358,16 +384,38 @@ def slice_slam(dev):
                               threaded_backend=False)
 
 
-def phase_slice(torch, dev, workdir):
+def start_recording(latest_width):
+    """Zero both launch counters and put recorders in front of both kernel
+    wrappers; returns the recorders."""
     from my_lidar_graph_slam_tpu_torch.ops.cuda import correlate, greedy_cost
 
-    records, gt, gt_t = slice_log(workdir)
-    slam = slice_slam(dev)
-    latest = slam.builder.config.latest_map_size
     correlate.window_scores.launches = 0
     greedy_cost.greedy_cost_core.launches = 0
-    rec = [Recorder(correlate, "window_scores", latest),
-           Recorder(greedy_cost, "greedy_cost_core", latest)]
+    return [Recorder(correlate, "window_scores", latest_width),
+            Recorder(greedy_cost, "greedy_cost_core", latest_width)]
+
+
+def stop_recording(rec, what):
+    """Read both launch counters, put the wrappers back, and fail unless
+    both kernels launched during ``what``."""
+    launches = {"window_scores": rec[0].fn.launches,
+                "greedy_cost": rec[1].fn.launches}
+    for r in rec:
+        r.restore()
+    for k, n in launches.items():
+        if n <= 0:
+            raise AssertionError(f"kernel {k} was not launched by {what}")
+    for r, k in zip(rec, launches):
+        if sum(r.counts.values()) != launches[k]:
+            raise AssertionError(f"{k}: per-shape counts do not add up to "
+                                 f"the launch counter in {what}")
+    return launches
+
+
+def phase_slice(torch, dev, workdir):
+    records, gt, gt_t = slice_log(workdir)
+    slam = slice_slam(dev)
+    rec = start_recording(slam.builder.config.latest_map_size)
     key_ms = []
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -378,10 +426,9 @@ def phase_slice(torch, dev, workdir):
     slam.stop_backend()
     torch.cuda.synchronize()
     elapsed = time.perf_counter() - t0
-    launches = {"window_scores": rec[0].fn.launches,
-                "greedy_cost": rec[1].fn.launches}
-    for r in rec:
-        r.restore()
+    launches = stop_recording(rec, "the slice")
+
+    from my_lidar_graph_slam_tpu_torch.utils import ate
 
     g = slam.graph
     poses = g.node_poses()
@@ -390,8 +437,9 @@ def phase_slice(torch, dev, workdir):
         "scans": len(records), "nodes": g.num_nodes, "edges": g.num_edges,
         "loop_closures": slam.backend.num_loop_closures,
         "loop_edges": slam.backend.num_loop_edges,
-        "ate_anchored_m": ate(poses, times, gt, gt_t, align=False),
-        "ate_aligned_m": ate(poses, times, gt, gt_t, align=True),
+        "ate_anchored_m": ate_anchored(poses, times, gt, gt_t),
+        "ate_aligned_m": ate.ate_rmse(poses, gt, est_times=times,
+                                      gt_times=gt_t),
         "seconds": elapsed, "scans_per_s": len(records) / elapsed,
         "keyframe_ms_median": float(np.median(key_ms)),
         "beam_bucket": slam.scans.beam_bucket(),
@@ -402,10 +450,141 @@ def phase_slice(torch, dev, workdir):
         raise AssertionError("non-finite node poses")
     if stats["loop_closures"] < 1:
         raise AssertionError("the slice closed no loop")
-    for k, n in launches.items():
-        if n <= 0:
-            raise AssertionError(f"kernel {k} was not launched by the slice")
-    return stats, rec, slam
+    return stats, rec, slam, records
+
+
+# --------------------------------------------------------------------------
+# Phase 6: the robust config through the launcher, in replay mode
+# --------------------------------------------------------------------------
+
+
+def phase_launcher(torch, workdir):
+    """``launcher.run`` on the robust settings, verbatim, in replay mode
+    (chunks of REPLAY_CHUNK keyframes), on the slice's log, with its ground
+    truth; the artifacts are read back through the port's own readers."""
+    from my_lidar_graph_slam_tpu_torch import launcher
+    from my_lidar_graph_slam_tpu_torch.io import map_io, png
+    from my_lidar_graph_slam_tpu_torch.utils import config
+    from my_lidar_graph_slam_tpu_torch.utils.metrics import MetricManager
+
+    latest = int(config.load(ROBUST).get("Tpu.LatestMapSize", 1024))
+    out = os.path.join(workdir, "robust")
+    MetricManager.reset_instance()
+    rec = start_recording(latest)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run = launcher.run(os.path.join(workdir, LOG_NAME), ROBUST, out,
+                       replay_chunk=REPLAY_CHUNK,
+                       gt_path=os.path.join(workdir, GT_NAME))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = stop_recording(rec, "the launcher run")
+
+    suffixes = (".png", ".json", "-latest.png", "-latest.json",
+                ".posegraph.json", "-posegraph.png", ".ckpt.npz",
+                ".metrics.json")
+    missing = [x for x in suffixes if not os.path.exists(out + x)]
+    if missing:
+        raise AssertionError(f"launcher artifacts missing: {missing}")
+    graph, _ = map_io.load_checkpoint(out + ".ckpt.npz")
+    pg = map_io.load_pose_graph(out + ".posegraph.json")
+    if not graph.num_nodes == pg.num_nodes == run["num_nodes"]:
+        raise AssertionError("checkpoint / pose graph node counts differ")
+    images = {x: png.read_png(out + x).shape
+              for x in (".png", "-latest.png", "-posegraph.png")}
+    metrics = json.load(open(out + ".metrics.json"))
+    shapes = sorted({(m, q) for (path, m, q) in rec[0].counts
+                     if path == "detection"})
+    multi = sum(n for (path, m, q), n in rec[0].counts.items() if m >= 2)
+    stats = {
+        "scans": run["num_scans"], "nodes": run["num_nodes"],
+        "edges": run["num_edges"], "loop_closures": run["num_loop_closures"],
+        "loop_edges": run["num_edges"] - (run["num_nodes"] - 1),
+        "ate_aligned_m": run["ate_rmse_m"], "seconds": run["elapsed_s"],
+        "scans_per_s": run["scans_per_s"], "wall_s": wall,
+        "multi_candidate_passes": multi,
+        "detection_shapes_MQ": shapes,
+        "images": images,
+        "loop_detect_queries": metrics["Counters"].get(
+            "LoopDetectMxuQueries", {}).get("value"),
+        "loop_detect_padded_queries": metrics["Counters"].get(
+            "LoopDetectMxuPaddedQueries", {}).get("value"),
+        "launches": launches,
+    }
+    log("  " + json.dumps(stats))
+    if stats["loop_closures"] < 1:
+        raise AssertionError("the launcher run closed no loop")
+    if multi < 1:
+        raise AssertionError("no detection pass stacked two or more maps")
+    if not np.isfinite(stats["ate_aligned_m"]):
+        raise AssertionError("the launcher run's ATE is not finite")
+    return stats, rec
+
+
+# --------------------------------------------------------------------------
+# Phase 7: the async frontend against the blocking one
+# --------------------------------------------------------------------------
+
+
+def phase_async(torch, dev, records):
+    """The default settings, a synchronous backend, the first ASYNC_SCANS
+    scans of the slice's log, four runs in turns: blocking, async, async,
+    blocking. Every run is held to the first one: equal node and edge
+    counts, node poses within 1e-5 and latest-map values within 1e-4
+    (tests/test_async_frontend.py:36-42), which holds only while no loop
+    closes. Returns the stats and the first async run's recorders."""
+    from my_lidar_graph_slam_tpu_torch.ops import grid as gridops
+
+    runs, async_rec = [], None
+    for mode in ("blocking", "async", "async", "blocking"):
+        slam = slice_slam(dev)
+        slam.frontend.async_pipeline = mode == "async"
+        rec = start_recording(slam.builder.config.latest_map_size)
+        key_ms = []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for scan in records[:ASYNC_SCANS]:
+            t1 = time.perf_counter()
+            if slam.process_scan(scan, scan.odom_pose):
+                key_ms.append(1e3 * (time.perf_counter() - t1))
+        slam.stop_backend()
+        torch.cuda.synchronize()
+        elapsed = time.perf_counter() - t0
+        launches = stop_recording(rec, f"the {mode} run")
+        if mode == "async" and async_rec is None:
+            async_rec = rec
+        ref = runs[0][0] if runs else slam
+        same_size = ref.graph.num_nodes == slam.graph.num_nodes
+        runs.append((slam, {
+            "mode": mode, "nodes": slam.graph.num_nodes,
+            "edges": slam.graph.num_edges,
+            "loop_closures": slam.backend.num_loop_closures,
+            "seconds": elapsed,
+            "keyframe_ms_median": float(np.median(key_ms)),
+            "max_pose_err": float(np.abs(
+                ref.graph.node_poses() - slam.graph.node_poses()).max())
+            if same_size else float("inf"),
+            "max_latest_map_err": float(
+                (gridops.values(ref.builder.latest_map) -
+                 gridops.values(slam.builder.latest_map)).abs().max()),
+            "launches": launches}))
+    stats = {"runs": [r for _, r in runs]}
+    for mode in ("blocking", "async"):
+        stats[f"{mode}_keyframe_ms_median_mean"] = float(np.mean(
+            [r["keyframe_ms_median"] for _, r in runs if r["mode"] == mode]))
+    log("  " + json.dumps(stats))
+    first = runs[0][1]
+    if first["loop_closures"]:
+        raise AssertionError("the blocking run closed a loop in the prefix")
+    for _, r in runs[1:]:
+        if (r["nodes"], r["edges"]) != (first["nodes"], first["edges"]):
+            raise AssertionError(f"{r['mode']} and blocking graphs differ "
+                                 "in size")
+        if r["max_pose_err"] > 1e-5 or r["max_latest_map_err"] > 1e-4:
+            raise AssertionError(
+                f"{r['mode']} differs from blocking: poses "
+                f"{r['max_pose_err']}, latest map {r['max_latest_map_err']}")
+    return stats, async_rec
 
 
 # --------------------------------------------------------------------------
@@ -482,8 +661,9 @@ def k1_library(torch, vm, ix, iy, w, wx, wy, map_idx, max_elems=150e6):
     land in the zero ring), with the beams' weights; the bag length is the
     most live beams of any query, the shorter queries padded with weight-0
     reads of cell 0. Returns (ms, scores): the indices are built outside
-    the timed region, in theta chunks of at most ``max_elems`` indices, and
-    the time is that of one embedding_bag call per chunk."""
+    the timed region one theta chunk of at most ``max_elems`` indices at a
+    time, and the time is the sum over the chunks of one embedding_bag
+    call each (so that no more than one chunk's indices are held)."""
     f = torch.nn.functional
     maps = vm if vm.dim() == 3 else vm[None]
     _, h, wd = maps.shape
@@ -506,7 +686,7 @@ def k1_library(torch, vm, ix, iy, w, wx, wy, map_idx, max_elems=150e6):
     dy = torch.arange(-wy, wy + 1, device=ix.device)
     per_theta = q * wxn * wyn * max(n_live, 1)
     step = max(1, int(max_elems // per_theta))
-    chunks = []
+    total_ms, outs = 0.0, []
     for t0 in range(0, nt, step):
         t1 = min(nt, t0 + step)
         idx_sel = sel[:, None, :].expand(q, t1 - t0, n_live)
@@ -517,21 +697,21 @@ def k1_library(torch, vm, ix, iy, w, wx, wy, map_idx, max_elems=150e6):
         gy = (gy[:, :, None, None, :] + dy[None, :, None] + py).clamp(
             0, hp - 1)
         flat = base[:, None, None, None, None] + gy * wp + gx  # [Q,T,X,Y,L]
+        del gx, gy
         flat = torch.where(wsel[:, None, None, None, :] != 0, flat,
                            torch.zeros_like(flat)).reshape(-1, n_live)
+        flat = flat.contiguous()
         psw = wsel[:, None, None, None, :].expand(
             q, t1 - t0, wxn, wyn, n_live).reshape(-1, n_live).contiguous()
-        chunks.append((t0, t1, flat.contiguous(), psw))
 
-    def run():
-        return [f.embedding_bag(idx, table, mode="sum",
-                                per_sample_weights=psw)
-                for _, _, idx, psw in chunks]
+        def run():
+            return f.embedding_bag(flat, table, mode="sum",
+                                   per_sample_weights=psw)
 
-    outs = run()
-    scores = torch.cat([o.reshape(q, t1 - t0, wxn, wyn)
-                        for (t0, t1, _, _), o in zip(chunks, outs)], dim=1)
-    return time_ms(torch, run, iters=3), scores
+        outs.append(run().reshape(q, t1 - t0, wxn, wyn))
+        total_ms += time_ms(torch, run, iters=3)
+        del flat, psw
+    return total_ms, torch.cat(outs, dim=1)
 
 
 def nbytes(*tensors):
@@ -579,13 +759,30 @@ def share(bound, ms):
     return bound / ms if ms > 0 else None
 
 
-def phase_times(torch, rec, stats, slam, errs):
-    """Per main-path shape of each kernel, on the inputs of the slice's last
-    call at that shape: the kernel against its plain version (held to phase
-    3's tolerances; K2 bit-equal) and against its own relaunch (bit-equal);
-    its time back to back, queued, and alone with a cold L2; the plain
-    version's time; K1's library yardstick; the bound and its share; and
-    the floor of an empty launch."""
+def recorded_calls(sources, index):
+    """(phase, path, M, Q, args, kwargs, launches) of kernel ``index`` (0:
+    K1, 1: K2) for every (path, M, Q) key that a run of ``sources``, a list
+    of (phase, recorders), recorded. The inputs are those of the last call
+    at that key in the first phase that recorded it; ``launches`` maps
+    each phase to its calls at that key."""
+    keys = sorted({key for _, rec in sources for key in rec[index].calls})
+    for key in keys:
+        by_phase = [(phase, rec[index]) for phase, rec in sources
+                    if key in rec[index].calls]
+        phase, r = by_phase[0]
+        args, kw = r.calls[key]
+        yield (phase, *key, args, kw,
+               {p: x.counts[key] for p, x in by_phase})
+
+
+def phase_times(torch, sources, slam, errs):
+    """Per main-path shape of each kernel, on the inputs of the last call
+    at that shape in the run that recorded it (``sources``, see
+    :func:`recorded_calls`): the kernel against its plain version (held to
+    phase 3's tolerances; K2 bit-equal) and against its own relaunch
+    (bit-equal); its time back to back, queued, and alone with a cold L2;
+    the plain version's time; K1's library yardstick; the bound and its
+    share; and the floor of an empty launch."""
     from my_lidar_graph_slam_tpu_torch.ops.cuda import correlate, greedy_cost
 
     floor_ms, floor_queued_ms, floor_cold_ms = launch_floor(torch)
@@ -596,14 +793,15 @@ def phase_times(torch, rec, stats, slam, errs):
               "launch_floor_queued_ms": floor_queued_ms,
               "launch_floor_cold_ms": floor_cold_ms}
     rows = []
-    for (path, q), (args, kw) in sorted(rec[0].calls.items()):
+    for phase, path, m, q, args, kw, launches in recorded_calls(sources, 0):
         vm, ix, iy, w, wx, wy, *rest = args
         map_idx = rest[0] if rest else kw.get("map_idx")
 
         def kernel():
             return correlate.window_scores(vm, ix, iy, w, wx, wy, map_idx)
 
-        name = f"{path} Q={q} (main-path inputs)"
+        shape_name = f"{path} Q={q}" if m == 1 else f"{path} M={m} Q={q}"
+        name = f"{shape_name} ({phase} inputs)"
         out, again = kernel(), kernel()
         ref = correlate.window_scores_plain(vm, ix, iy, w, wx, wy, map_idx)
         torch.cuda.synchronize()
@@ -625,11 +823,12 @@ def phase_times(torch, rec, stats, slam, errs):
                                                         queued=True)
         g = correlate.launch_geometry(nb, wx, wy)
         rows.append({
-            "name": f"window_scores[{path} Q={q}]", "route": "cuda",
+            "name": f"window_scores[{shape_name}]", "route": "cuda",
             "source": "my_lidar_graph_slam_tpu_torch/csrc/correlate.cu",
             "replaces": "my_lidar_graph_slam_tpu/ops/pallas/"
                         "correlate_mxu.py:191",
-            "launches": rec[0].counts[(path, q)],
+            "launches": sum(launches.values()),
+            "launches_by_phase": launches, "phase": phase,
             "max_abs_err": err,
             "edge_cases_max_abs_err": errs["window_scores"],
             "bit_equal_on_relaunch": True,
@@ -643,13 +842,16 @@ def phase_times(torch, rec, stats, slam, errs):
             "library": "torch.nn.functional.embedding_bag(mode='sum', "
                        "per_sample_weights) over a zero-padded map",
             **common,
-            "shape": {"Q": q, "NT": nt, "NB": nb, "live_beams": n_live,
+            "shape": {"M": m, "Q": q, "NT": nt, "NB": nb,
+                      "live_beams": n_live,
                       "window": [2 * wx + 1, 2 * wy + 1],
                       "map": list(vm.shape[-2:]), "map_cells_read": read,
                       "geometry": g._asdict()}})
 
+    # The robust settings share the default's cost groups, so the slice's
+    # greedy parameters serve phase 6's rows as well.
     res = slam.builder.config.resolution
-    for (path, q), (args, kw) in sorted(rec[1].calls.items()):
+    for phase, path, m, q, args, kw, launches in recorded_calls(sources, 1):
         vm, cells, mask, table, k, thr, *rest = args
         map_idx = rest[0] if rest else kw.get("map_idx")
         gp = dict(slam.frontend.matcher.greedy_params if path == "frontend"
@@ -660,7 +862,8 @@ def phase_times(torch, rec, stats, slam, errs):
             return greedy_cost.greedy_cost_core(vm, cells, mask, table, k,
                                                 thr, map_idx)
 
-        name = f"{path} Q={q} (main-path inputs)"
+        shape_name = f"{path} Q={q}" if m == 1 else f"{path} M={m} Q={q}"
+        name = f"{shape_name} ({phase} inputs)"
         raw, again = kernel(), kernel()
         raw_ref = greedy_cost.greedy_cost_core_plain(vm, cells, mask, table,
                                                      k, thr, map_idx)
@@ -687,11 +890,12 @@ def phase_times(torch, rec, stats, slam, errs):
         ms, ms_queued = time_ms(torch, kernel), time_ms(torch, kernel,
                                                         queued=True)
         rows.append({
-            "name": f"greedy_cost[{path} Q={q}]", "route": "cuda",
+            "name": f"greedy_cost[{shape_name}]", "route": "cuda",
             "source": "my_lidar_graph_slam_tpu_torch/csrc/greedy_cost.cu",
             "replaces": "my_lidar_graph_slam_tpu/ops/pallas/"
                         "greedy_cost_mxu.py:233",
-            "launches": rec[1].counts[(path, q)],
+            "launches": sum(launches.values()),
+            "launches_by_phase": launches, "phase": phase,
             "max_abs_err": err,
             "edge_cases_max_abs_err": errs["greedy_cost"],
             "bit_equal_to_plain": True, "bit_equal_on_relaunch": True,
@@ -708,13 +912,9 @@ def phase_times(torch, rec, stats, slam, errs):
                        "a histogram of the minima per pose, is no single "
                        "PyTorch call",
             **common,
-            "shape": {"Q": q, "NB": nb, "masked_beams": n_masked,
+            "shape": {"M": m, "Q": q, "NB": nb, "masked_beams": n_masked,
                       "kernel_size": k, "map": list(vm.shape[-2:]),
                       "map_cells_read": read}})
-    for name, key in (("window_scores", 0), ("greedy_cost", 1)):
-        if sum(rec[key].counts.values()) != stats["launches"][name]:
-            raise AssertionError(f"{name}: per-shape counts do not add up "
-                                 "to the launch counter")
     return rows
 
 
@@ -733,12 +933,12 @@ def main() -> int:
 
     smi = smi_line()
     kind = torch.cuda.get_device_name(0)
-    log(f"[1/5] device: {smi} | torch {torch.__version__} cuda "
+    log(f"[1/7] device: {smi} | torch {torch.__version__} cuda "
         f"{torch.version.cuda} | {kind}")
 
     t0 = time.perf_counter()
     loader.build_all()
-    log(f"[2/5] build: {time.perf_counter() - t0:.2f} s")
+    log(f"[2/7] build: {time.perf_counter() - t0:.2f} s")
     for name, text in loader.ptxas_report.items():
         for line in text.splitlines():
             if "registers" in line or "spill" in line:
@@ -751,14 +951,25 @@ def main() -> int:
         # beam capacity for NB.
         dev = torch.device("cuda")
         errs = phase_kernels(torch, dev, 1024)
-        log(f"[3/5] kernels vs plain: ok in {time.perf_counter() - t0:.1f} s")
+        log(f"[3/7] kernels vs plain: ok in {time.perf_counter() - t0:.1f} s")
 
         t0 = time.perf_counter()
-        stats, rec, slam = phase_slice(torch, dev, workdir)
-        log(f"[4/5] slice: ok in {time.perf_counter() - t0:.1f} s")
+        stats, rec, slam, records = phase_slice(torch, dev, workdir)
+        log(f"[4/7] slice: ok in {time.perf_counter() - t0:.1f} s")
+
+        t0 = time.perf_counter()
+        launcher_stats, rec6 = phase_launcher(torch, workdir)
+        log(f"[6/7] launcher, robust settings, replay: ok in "
+            f"{time.perf_counter() - t0:.1f} s")
+
+        t0 = time.perf_counter()
+        async_stats, rec7 = phase_async(torch, dev, records)
+        log(f"[7/7] async against blocking: ok in "
+            f"{time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
-    rows = phase_times(torch, rec, stats, slam, errs)
+    sources = [("slice", rec), ("launcher", rec6), ("async", rec7)]
+    rows = phase_times(torch, sources, slam, errs)
     for r in rows:
         lib = "n/a" if r["library_ms"] is None else \
             f"{r['library_ms']:.4f} ms"
@@ -770,11 +981,13 @@ def main() -> int:
             f"back, {r['bound_share_queued']:.3f} queued, "
             f"launch floor {r['launch_floor_ms']:.5f} ms back to back, "
             f"{r['launch_floor_queued_ms']:.5f} ms queued), "
-            f"{r['launches']} launches, max|err| vs plain "
+            f"{r['launches']} launches {json.dumps(r['launches_by_phase'])}"
+            f", inputs of the {r['phase']} run, max|err| vs plain "
             f"{r['max_abs_err']:.3g} {json.dumps(r['shape'])}")
-    log(f"[5/5] times: ok in {time.perf_counter() - t0:.1f} s")
+    log(f"[5/7] times: ok in {time.perf_counter() - t0:.1f} s")
 
-    print(json.dumps({"kernels": rows, "slice": stats}))
+    print(json.dumps({"kernels": rows, "slice": stats,
+                      "launcher": launcher_stats, "async": async_stats}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

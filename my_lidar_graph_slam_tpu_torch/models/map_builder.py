@@ -9,9 +9,10 @@ rebuilt, all of them in stacked batches (grid_map_builder.cpp:62-80,
 227-332).
 
 Scan arrays for all pose-graph nodes live on the host in a
-:class:`ScanStore`; each device step uploads the rows it needs. The
-branch-and-bound pyramids, the TPU tile caches and the replay-mode chunk
-integration are not ported yet.
+:class:`ScanStore`; each device step uploads the rows it needs. Replay
+mode integrates a chunk of nodes at once (:meth:`GridMapBuilder.
+append_scans_chunk`). The branch-and-bound pyramid cache and the TPU tile
+caches have no counterpart here.
 """
 
 from __future__ import annotations
@@ -29,6 +30,7 @@ from my_lidar_graph_slam_tpu_torch.ops import raycast
 from my_lidar_graph_slam_tpu_torch.sensor.data import RawScan
 from my_lidar_graph_slam_tpu_torch.utils import device as device_mod
 from my_lidar_graph_slam_tpu_torch.utils import se2
+from my_lidar_graph_slam_tpu_torch.utils.metrics import MetricManager
 
 # Local maps rebuilt together in one stacked integration.
 REBUILD_BATCH = 8
@@ -77,6 +79,9 @@ class ScanStore:
         if scan.num_beams > self.beam_capacity:
             # Never truncate silently.
             self.truncated_beams += scan.num_beams - self.beam_capacity
+            MetricManager.instance().counters(
+                "ScanStoreTruncatedBeams").increment(
+                scan.num_beams - self.beam_capacity)
             print(f"WARNING: scan {idx} truncated from {scan.num_beams} to "
                   f"{self.beam_capacity} beams (raise beam_capacity)",
                   file=sys.stderr)
@@ -276,9 +281,14 @@ class GridMapBuilder:
                         origin=gridops.origin_for(center, size, size,
                                                   cfg.resolution))
 
-    def _update_local_maps(self, graph: PoseGraph) -> bool:
+    def _update_local_maps(self, graph: PoseGraph,
+                           node_idx: Optional[int] = None) -> bool:
+        """Local-map bookkeeping for node ``node_idx`` (default: the
+        latest): travel accumulation, the travel-threshold and early-split
+        decisions. Returns True when a new local map was created."""
         cfg = self.config
-        node_idx = graph.num_nodes - 1
+        if node_idx is None:
+            node_idx = graph.num_nodes - 1
         robot_pose = graph.poses[node_idx]
         scan_id = int(graph.scan_ids[node_idx])
 
@@ -293,6 +303,8 @@ class GridMapBuilder:
             (self.travel_dist_last_local_map >= cfg.travel_dist_threshold)
         if not create_new and not self._scan_fits(
                 self.local_maps[-1], robot_pose, scan_id):
+            MetricManager.instance().counters(
+                "LocalMapEarlySplits").increment()
             create_new = True   # Expand-equivalent early split
         if create_new:
             if self.local_maps:
@@ -301,6 +313,35 @@ class GridMapBuilder:
                 self._new_local_map(node_idx, robot_pose[:2]))
             self.travel_dist_last_local_map = 0.0
         return create_new
+
+    def append_scans_chunk(self, graph: PoseGraph, first_node: int,
+                           count: int):
+        """Batched :meth:`append_scan` for ``count`` new nodes (replay
+        mode; ``map_builder.py:442-509`` of the JAX package).
+
+        Walks the new nodes in order with the exact per-scan local-map
+        bookkeeping (:meth:`_update_local_maps`), groups consecutive nodes
+        that land in the same local map and integrates each group with one
+        ``integrate_scans`` call in node order, then rebuilds the latest
+        map once at the last node.
+        """
+        groups = []  # [(local map, [consecutive node indices])]
+        for node_idx in range(first_node, first_node + count):
+            self._update_local_maps(graph, node_idx)
+            lm = self.local_maps[-1]
+            if groups and groups[-1][0] is lm:
+                groups[-1][1].append(node_idx)
+            else:
+                groups.append((lm, [node_idx]))
+            lm.node_idx_max = node_idx
+            row = np.asarray(graph.poses[node_idx], np.float64)[None, :]
+            lm.built_poses = row if lm.built_poses is None else \
+                np.concatenate([lm.built_poses, row])
+            lm.values = None
+        for lm, nodes in groups:
+            lm.grid = self._construct_from_nodes(lm.grid, graph, nodes[0],
+                                                 nodes[-1])
+        self._update_latest_map(graph)
 
     def _update_latest_map(self, graph: PoseGraph):
         """Rebuild the last-N-scans map (grid_map_builder.cpp:196-207)."""
@@ -341,6 +382,7 @@ class GridMapBuilder:
         cfg = self.config
         eps_t = 0.5 * cfg.resolution
         eps_a = 0.5 * cfg.resolution / max(cfg.usable_range_max, 1e-6)
+        metrics = MetricManager.instance()
         rebuild: List[LocalMap] = []
         for lm in self.local_maps:
             new_poses = graph.poses[lm.node_idx_min:lm.node_idx_max + 1]
@@ -350,6 +392,7 @@ class GridMapBuilder:
                 da = np.abs(se2.normalize_angle_np(
                     new_poses[:, 2] - lm.built_poses[:, 2])).max()
                 if dt < eps_t and da < eps_a:
+                    metrics.counters("LocalMapRebuildsSkipped").increment()
                     continue
             rebuild.append(lm)
         if rebuild:
@@ -359,6 +402,7 @@ class GridMapBuilder:
             steps = self._steps(graph.scan_ids[all_nodes].astype(np.int64))
             for b0 in range(0, len(rebuild), REBUILD_BATCH):
                 self._rebuild(graph, rebuild[b0:b0 + REBUILD_BATCH], steps)
+            metrics.counters("LocalMapRebuilds").increment(len(rebuild))
         self._update_latest_map(graph)
         self._update_accum_travel_dist(graph)
 

@@ -1,11 +1,13 @@
 """Frontend scan-matcher strategy wrapper.
 
 Counterpart of ``my_lidar_graph_slam_tpu/models/scan_matchers.py:34-62,
-147-263,312-325``: :class:`CorrelativeMatcher` (ScanMatcherRealTimeCorrelative
+147-325``: :class:`CorrelativeMatcher` (ScanMatcherRealTimeCorrelative
 config, launcher_settings_default.json:42-50) on the exhaustive sweep path
 (``ops/matchers_sweep.py``). A match is one sequence of device launches and
-ONE ``.cpu()`` of a packed [Q, 16] result. The pruned gather path, the
-asynchronous match and the other matcher strategies are not ported yet.
+ONE host read of a packed [1, 16] result, started without blocking and
+read later (``match_async`` / ``resolve_async``); the blocking frontend
+resolves at once. The pruned gather path and the other matcher strategies
+are not ported yet.
 
 Default greedy-endpoint parameters replicate the launcher's *effective*
 configuration, including the swapped (scale, sigma) constructor arguments
@@ -21,12 +23,14 @@ scores are sums of non-negative occupancies, so the equivalent is threshold
 from __future__ import annotations
 
 import dataclasses
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
 
 from my_lidar_graph_slam_tpu_torch.ops import grid as gridops
 from my_lidar_graph_slam_tpu_torch.ops import matchers, matchers_sweep
+from my_lidar_graph_slam_tpu_torch.utils.metrics import MetricManager
 
 DEFAULT_GREEDY_PARAMS = (
     ("hit_and_missed_dist", 0.075),
@@ -47,6 +51,16 @@ def unpack_summary(packed: np.ndarray, initial_poses) -> matchers.MatchSummary:
         estimated_pose=packed[:, 0:3],
         covariance=packed[:, 3:12].reshape(-1, 3, 3),
     )
+
+
+class PendingMatch(NamedTuple):
+    """A match started by :meth:`CorrelativeMatcher.match_async`: its
+    packed [1, 16] result in a host buffer that belongs to this match
+    alone, and the CUDA event after the copy into it (``None`` on the
+    CPU, where the copy is done)."""
+
+    host: torch.Tensor
+    event: Optional[object]
 
 
 @dataclasses.dataclass
@@ -72,10 +86,10 @@ class CorrelativeMatcher:
             res, self.scan_range_max, self.range_theta)
         return win_x, win_y, win_t
 
-    def match_batch(self, grid: gridops.GridMap, store, scan_ids,
-                    initial_poses) -> matchers.MatchSummary:
-        """Match Q stored scans against ``grid``; returns a host
-        MatchSummary with a leading Q axis."""
+    def _match_packed(self, grid: gridops.GridMap, store, scan_ids,
+                      poses: np.ndarray) -> torch.Tensor:
+        """The packed f32[Q, 16] device result of matching stored scans
+        ``scan_ids`` at ``poses`` f32[Q, 3] against ``grid``."""
         win_x, win_y, win_t = self._window(grid.resolution)
         ids = np.asarray(scan_ids)
         nb = store.beam_bucket()
@@ -84,7 +98,6 @@ class CorrelativeMatcher:
         def up(arr):
             return torch.from_numpy(np.ascontiguousarray(arr)).to(dev)
 
-        poses = np.asarray(initial_poses, np.float32)
         summary = matchers_sweep.correlative_match_sweep(
             gridops.values(grid), grid, up(poses),
             up(store.ranges[ids][:, :nb]), up(store.angles[ids][:, :nb]),
@@ -96,13 +109,37 @@ class CorrelativeMatcher:
             win_x=win_x, win_y=win_y, win_theta_max=win_t,
             cost_type=self.cost_type, greedy_params=self.greedy_params,
             score_gate="correlative")
-        packed = matchers_sweep.pack_summary(summary).cpu().numpy()
-        return unpack_summary(packed, poses)
+        MetricManager.instance().counters("FrontendMxuMatches").increment(
+            len(ids))
+        return matchers_sweep.pack_summary(summary)
 
-    def match(self, grid: gridops.GridMap, store, scan_id: int,
-              initial_pose) -> matchers.MatchSummary:
-        """Single-query frontend match."""
-        out = self.match_batch(
+    def match_async(self, grid: gridops.GridMap, store, scan_id: int,
+                    initial_pose) -> PendingMatch:
+        """Start a single-query match without waiting for it.
+
+        The match is launched on the current stream, behind whatever is
+        already queued there (the previous keyframe's map update), and its
+        packed [1, 16] result is copied into a page-locked host buffer of
+        its own with ``non_blocking=True``, followed by a CUDA event.
+        :meth:`resolve_async` waits on that event. On the CPU the copy is
+        a plain one."""
+        packed = self._match_packed(
             grid, store, [scan_id],
             np.asarray(initial_pose, np.float32)[None, :])
+        if packed.device.type != "cuda":
+            return PendingMatch(packed.clone(), None)
+        host = torch.empty(packed.shape, dtype=packed.dtype,
+                           pin_memory=True)
+        host.copy_(packed, non_blocking=True)
+        event = torch.cuda.Event()
+        event.record(torch.cuda.current_stream(packed.device))
+        return PendingMatch(host, event)
+
+    def resolve_async(self, pending: PendingMatch,
+                      initial_pose) -> matchers.MatchSummary:
+        """Wait for a :meth:`match_async` result and unpack it."""
+        if pending.event is not None:
+            pending.event.synchronize()
+        out = unpack_summary(pending.host.numpy(),
+                             np.asarray(initial_pose, np.float32)[None, :])
         return matchers.MatchSummary(*(leaf[0] for leaf in out))

@@ -9,8 +9,8 @@ cost/covariance. Window scores come from the K1 kernel
 (``ops/cuda/correlate.py``), which takes any window directly, so the JAX
 package's 7x7 block assembly has no counterpart here; the cost and
 covariance at the best pose come from the K2 kernel
-(``ops/cuda/greedy_cost.py``). The folded multi-map matcher is not ported
-yet.
+(``ops/cuda/greedy_cost.py``). :func:`correlative_match_sweep_multi` folds
+several stacked maps into one set of launches through ``map_idx``.
 
 Exact by construction: every candidate in the window is scored.
 """
@@ -25,10 +25,12 @@ from my_lidar_graph_slam_tpu_torch.ops.cuda import correlate, greedy_cost
 from my_lidar_graph_slam_tpu_torch.utils import se2
 
 
-def hit_cells(grid: gridops.GridMap, sensor_poses, ranges, angles,
-              step_t, win_theta_max: int):
-    """int32 (ix, iy) [Q, NT, NB] beam endpoints over the ORDERED theta
-    lattice ``theta_0 + i * step_t``, i in [-win_theta_max, win_theta_max]
+def hit_cells_at(origins, resolution: float, sensor_poses, ranges, angles,
+                 step_t, win_theta_max: int):
+    """int32 (ix, iy) [Q, NT, NB] beam endpoints on grids of cell size
+    ``resolution`` with a per-query origin ``origins`` f32[Q, 2] (or one
+    origin f32[1, 2] for every query), over the ORDERED theta lattice
+    ``theta_0 + i * step_t``, i in [-win_theta_max, win_theta_max]
     (rotation by angle addition, as ``matchers_mxu.py:229-243``)."""
     dev = ranges.device
     nt = 2 * win_theta_max + 1
@@ -43,9 +45,9 @@ def hit_cells(grid: gridops.GridMap, sensor_poses, ranges, angles,
     sin_phi = s0[:, None, :] * ct + c0[:, None, :] * st2
     hx = sensor_poses[:, 0, None, None] + ranges[:, None, :] * cos_phi
     hy = sensor_poses[:, 1, None, None] + ranges[:, None, :] * sin_phi
-    res = gridops.scalar(grid.resolution, dev)
-    ix = torch.floor((hx - grid.origin[0]) / res).to(torch.int32)
-    iy = torch.floor((hy - grid.origin[1]) / res).to(torch.int32)
+    res = gridops.scalar(resolution, dev)
+    ix = torch.floor((hx - origins[:, 0, None, None]) / res).to(torch.int32)
+    iy = torch.floor((hy - origins[:, 1, None, None]) / res).to(torch.int32)
     return ix, iy
 
 
@@ -75,6 +77,70 @@ def correlative_match_sweep(value_map, grid: gridops.GridMap, initial_poses,
     ScorePixelAccurate (score_function_pixel_accurate.cpp:27-41) as well —
     the loop detector's gate.
     """
+    return _sweep(value_map, grid.origin, grid.resolution, None,
+                  initial_poses, ranges, angles, valid, scan_min_range,
+                  scan_max_range, rel_sensor_poses, scan_range_max,
+                  range_theta, usable_range_min, usable_range_max,
+                  normalized_score_threshold, num_total_beams, win_x, win_y,
+                  win_theta_max, cost_type, greedy_params, score_gate)
+
+
+def correlative_match_sweep_multi(value_maps, origins, resolution: float,
+                                  initial_poses, ranges, angles, valid,
+                                  scan_min_range, scan_max_range,
+                                  rel_sensor_poses, scan_range_max: float,
+                                  range_theta: float,
+                                  usable_range_min: float,
+                                  usable_range_max: float,
+                                  normalized_score_threshold: float,
+                                  num_total_beams, win_x: int, win_y: int,
+                                  win_theta_max: int,
+                                  cost_type: str = "greedy_endpoint",
+                                  greedy_params: tuple = (),
+                                  score_gate: str = "pixel_accurate"
+                                  ) -> matchers.MatchSummary:
+    """M candidate maps x K queries each in one set of kernel launches
+    (``matchers_mxu.py:318-482``, ``correlative_match_mxu_multi``).
+
+    ``value_maps`` f32[M, H, W] stacked same-size maps, ``origins``
+    f32[M, 2]; the query tensors of :func:`correlative_match_sweep` with
+    leading axes [M, K]. The (map, query) axes fold into the kernels'
+    query axis: query ``m * K + k`` reads map ``m`` through ``map_idx``,
+    with map ``m``'s origin for its hit cells and its cost. K2 takes
+    ``map_idx`` at any ``kernel_size``, so the fold always applies and
+    the JAX package's per-map fallback (``matchers_mxu.py:363-379``) has
+    no counterpart. Returns a MatchSummary with leading axes [M, K].
+    """
+    m, k = ranges.shape[:2]
+    dev = ranges.device
+
+    def fold(x):
+        return x.reshape((m * k,) + tuple(x.shape[2:]))
+
+    map_idx = torch.arange(m, dtype=torch.int32,
+                           device=dev).repeat_interleave(k)
+    origin_q = origins.repeat_interleave(k, dim=0)              # [Q, 2]
+    summary = _sweep(value_maps, origin_q, resolution, map_idx,
+                     fold(initial_poses), fold(ranges), fold(angles),
+                     fold(valid), fold(scan_min_range), fold(scan_max_range),
+                     fold(rel_sensor_poses), scan_range_max, range_theta,
+                     usable_range_min, usable_range_max,
+                     normalized_score_threshold, fold(num_total_beams),
+                     win_x, win_y, win_theta_max, cost_type, greedy_params,
+                     score_gate)
+    return matchers.MatchSummary(*(
+        x.reshape((m, k) + tuple(x.shape[1:])) for x in summary))
+
+
+def _sweep(value_map, origin, resolution: float, map_idx, initial_poses,
+           ranges, angles, valid, scan_min_range, scan_max_range,
+           rel_sensor_poses, scan_range_max, range_theta, usable_range_min,
+           usable_range_max, normalized_score_threshold, num_total_beams,
+           win_x, win_y, win_theta_max, cost_type, greedy_params,
+           score_gate) -> matchers.MatchSummary:
+    """The sweep on ``value_map`` f32[H, W] with ``origin`` f32[2], or on
+    a stack f32[M, H, W] with ``map_idx`` i32[Q] and ``origin`` f32[Q, 2].
+    """
     if cost_type != "greedy_endpoint":
         raise NotImplementedError(
             f"cost type {cost_type!r} is not ported yet")
@@ -86,7 +152,7 @@ def correlative_match_sweep(value_map, grid: gridops.GridMap, initial_poses,
     max_range = torch.clamp(
         torch.where(valid, ranges, torch.full_like(ranges, -torch.inf)
                     ).amax(dim=-1), max=scan_range_max)           # [Q]
-    res = gridops.scalar(grid.resolution, dev)
+    res = gridops.scalar(resolution, dev)
     step_t = matchers.search_step_theta(res, max_range)            # [Q]
     # An all-invalid (padding) row has step 0: every theta stays live,
     # as the saturating conversion of the JAX package leaves it.
@@ -105,9 +171,10 @@ def correlative_match_sweep(value_map, grid: gridops.GridMap, initial_poses,
         raise ValueError(f"unknown score gate {score_gate!r}")
     wgt = proj_mask.to(f32)
 
-    ix, iy = hit_cells(grid, sensor_poses, ranges, angles, step_t,
-                       win_theta_max)
-    scores = correlate.window_scores(value_map, ix, iy, wgt, win_x, win_y)
+    ix, iy = hit_cells_at(origin.reshape(-1, 2), resolution, sensor_poses,
+                          ranges, angles, step_t, win_theta_max)
+    scores = correlate.window_scores(value_map, ix, iy, wgt, win_x, win_y,
+                                     map_idx)
     nt = 2 * win_theta_max + 1
     t_idx = torch.arange(nt, device=dev) - win_theta_max
     live = t_idx.abs()[None, :].to(f32) <= win_theta_act[:, None]
@@ -138,13 +205,13 @@ def correlative_match_sweep(value_map, grid: gridops.GridMap, initial_poses,
         scan_min_range[:, None], scan_max_range[:, None])
     gp = dict(greedy_params)
     c, cov = greedy_cost.greedy_cost_cov(
-        value_map, grid.origin, best_sensor_poses, ranges, angles,
-        cost_mask, grid.resolution,
+        value_map, origin, best_sensor_poses, ranges, angles,
+        cost_mask, resolution,
         hit_and_missed_dist=gp.get("hit_and_missed_dist", 0.075),
         occupancy_threshold=gp.get("occupancy_threshold", 0.1),
         kernel_size=gp.get("kernel_size", 1),
         standard_deviation=gp.get("standard_deviation", 1.0),
-        scaling_factor=gp.get("scaling_factor", 0.05))
+        scaling_factor=gp.get("scaling_factor", 0.05), map_idx=map_idx)
 
     return matchers.MatchSummary(
         pose_found=pose_found,

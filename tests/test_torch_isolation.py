@@ -1,5 +1,6 @@
 """The PyTorch port, chip_smoke.py and the port's tools must not import JAX
-or the JAX package, not even its NumPy-only modules."""
+or the JAX package, not even its NumPy-only modules, nor PIL or matplotlib,
+which the CUDA card's machine does not have."""
 
 import ast
 import pathlib
@@ -12,8 +13,8 @@ SOURCES = sorted(p for p in PKG.rglob("*.py")
                  if "build" not in p.relative_to(PKG).parts) + \
     [ROOT / "chip_smoke.py", ROOT / "tools" / "profile_torch_slice.py",
      ROOT / "tools" / "replay_detections_torch.py",
-     ROOT / "tools" / "kernel_ab.py"]
-FORBIDDEN = ("jax", "jaxlib", "my_lidar_graph_slam_tpu")
+     ROOT / "tools" / "kernel_ab.py", ROOT / "tools" / "compare_modes.py"]
+FORBIDDEN = ("jax", "jaxlib", "my_lidar_graph_slam_tpu", "PIL", "matplotlib")
 
 
 def _imported_modules(path):

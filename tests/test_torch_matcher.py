@@ -32,6 +32,17 @@ from my_lidar_graph_slam_tpu_torch.ops import matchers_sweep
 RES = 0.05
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread for the port's small CPU tensors while this
+    module runs: the suite runs several worker processes at once, and
+    their thread pools would otherwise oversubscribe the cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.fixture(scope="module")
 def match_scene():
     """The scene of test_pallas_mxu.py::
@@ -106,9 +117,9 @@ def test_sweep_lattice_matches_jax(match_scene):
 
     win_t = jmatchers.static_max_theta_window(RES, 12.0, 0.3)
     sensor = torch.from_numpy(s["ip"])
-    ix, iy = matchers_sweep.hit_cells(tg, sensor, torch.from_numpy(s["r"]),
-                                      torch.from_numpy(s["a"]), step_t,
-                                      win_t)
+    ix, iy = matchers_sweep.hit_cells_at(
+        tg.origin.reshape(1, 2), tg.resolution, sensor,
+        torch.from_numpy(s["r"]), torch.from_numpy(s["a"]), step_t, win_t)
     # The JAX package's lattice (matchers_mxu.py:226-243).
     st_ = jnp.asarray(s["ip"][:, 2])
     t_idx = jnp.arange(2 * win_t + 1) - win_t
@@ -274,12 +285,24 @@ def test_searcher_matches_jax(loop_scene):
 
 
 def test_detector_refuses_several_candidates(loop_scene):
+    """Several candidates per pass are detected (the folded sweep), but a
+    pass that holds a candidate in an unfinished local map is refused."""
     _, graph, tbuilder, tgraph = loop_scene
     last = graph.num_nodes - 1
     cand = tlc.LoopCandidate(node_indices=[last], local_map_idx=0,
                              local_map_node_idx=1)
-    with pytest.raises(NotImplementedError):
-        tlc.LoopDetectorBranchBound().detect(tgraph, tbuilder, [cand, cand])
+    det = tlc.LoopDetectorBranchBound(range_x=0.2, range_y=0.2,
+                                      range_theta=0.05, scan_range_max=12.0,
+                                      usable_range_max=12.0)
+    assert len(det.detect(tgraph, tbuilder, [cand, cand])) == \
+        2 * len(det.detect(tgraph, tbuilder, [cand]))
+    open_map = len(tbuilder.local_maps) - 1
+    assert not tbuilder.local_maps[open_map].finished
+    unfinished = tlc.LoopCandidate(node_indices=[last],
+                                   local_map_idx=open_map,
+                                   local_map_node_idx=last)
+    with pytest.raises(ValueError):
+        det.detect(tgraph, tbuilder, [cand, unfinished])
 
 
 def test_rebuild_matches_jax(loop_scene):

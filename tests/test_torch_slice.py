@@ -31,6 +31,7 @@ from my_lidar_graph_slam_tpu_torch.models.preprocess import \
     ScanInterpolator as TInterp
 from my_lidar_graph_slam_tpu_torch.models.scan_matchers import \
     CorrelativeMatcher as TMatcher
+from tests.test_torch_matcher import one_torch_thread  # noqa: F401
 
 POSE_ATOL = 1e-3
 ATE_ATOL = 0.02

@@ -53,9 +53,9 @@ def record(path: str) -> None:
     sys.path.insert(0, THIS)
     cs = _chip_smoke()
     with tempfile.TemporaryDirectory(dir=THIS, prefix="kernel_ab_") as work:
-        stats, rec, _ = cs.phase_slice(torch, torch.device("cuda"), work)
+        stats, rec, *_ = cs.phase_slice(torch, torch.device("cuda"), work)
     torch.save({r.name: {f"{p} Q={q}": (list(args), kw)
-                         for (p, q), (args, kw) in r.calls.items()}
+                         for (p, _, q), (args, kw) in r.calls.items()}
                 for r in rec}, path)
     print(json.dumps({"slice": stats}), flush=True)
 

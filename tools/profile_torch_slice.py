@@ -69,8 +69,8 @@ def main() -> int:
     # 1. Stage timers.
     slam = chip_smoke.slice_slam("cuda")
     stages = {}
-    slam.frontend.matcher.match = _timed(stages, "match",
-                                         slam.frontend.matcher.match)
+    slam.frontend.matcher.match_async = _timed(
+        stages, "match", slam.frontend.matcher.match_async)
     slam.builder.append_scan = _timed(stages, "map_update",
                                       slam.builder.append_scan)
     slam.backend.run_once = _timed(stages, "backend", slam.backend.run_once)
