@@ -46,7 +46,27 @@ with a CUDA card and the CUDA toolkit (``nvcc``). Phases:
    parity test has no backend for that reason): the prefix ends before
    the first candidate, and the phase fails if the blocking run closed a
    loop in it.
-5. Times (run last, on the inputs recorded by phases 4, 6 and 7): first
+8. BranchBound frontend: ``launcher.run`` on
+   ``configs/launcher_settings_bb_frontend.json`` verbatim, online
+   (blocking frontend, synchronous backend), on phase 4's log and ground
+   truth. Every artifact must exist; at least one closure, a finite ATE,
+   K1 (the detector sweep) and K2 (the cost tail of the branch-and-bound
+   match and of the sweep) launched. Prints nodes, edges, closures, loop
+   edges, ATE, scans/s, median keyframe ms, the total
+   ``frontier_overflow`` and the host synchronizations per keyframe that
+   PyTorch's sync debug mode reports (uploads of the scans included).
+9. Device pose-graph solver (``models/optimizer_lm.py``): (a) phase 4's
+   final graph and (b) a ring of 8192 nodes (``io/synth.py::ring_graph``,
+   seed 0, 4 loop edges), each solved on the card (CG with the chain
+   preconditioner, the default settings' LM config; (b) with TF32 off and
+   with TF32 on) three times and by the host solver; poses finite and
+   within 0.05 m of the host solver's in x and y; device ms (median of
+   3), host ms, LM and CG iterations, host reads, the run-to-run spread.
+   (c) The default settings over the log's first 2000 scans with
+   ``host_solver_max_nodes`` = 128, so every backend pass above 128
+   nodes solves on the card inside ``Backend.run_once``: at least one
+   closure, a device solve, a finite ATE, K1 and K2 launched.
+5. Times (run last, on the inputs recorded by phases 4, 6, 7, 8 and 9): first
    the launch floor, an empty kernel launched as the kernels are (ctypes,
    current stream), back to back and queued. Then, for every shape that
    any of those runs gave a kernel, keyed by (path, M, Q), the kernel and
@@ -89,11 +109,19 @@ import numpy as np
 REPO = os.path.dirname(os.path.abspath(__file__))
 SETTINGS = os.path.join(REPO, "configs", "launcher_settings_default.json")
 ROBUST = os.path.join(REPO, "configs", "launcher_settings_robust.json")
+BB_FRONTEND = os.path.join(REPO, "configs",
+                           "launcher_settings_bb_frontend.json")
 LOG_NAME, GT_NAME = "intel2.clf", "intel2_gt.npz"
 REPLAY_CHUNK = 16
 # Phase 7's prefix of the log: on the ground truth the first loop
 # candidate of the default settings appears at scan 840.
 ASYNC_SCANS = 800
+# Phase 9: the ring's size and loop edges, the backend run's prefix and
+# solver threshold, and the tolerance against the host solver
+# (tests/test_optimizer_solvers.py:100).
+RING_NODES, RING_LOOPS = 8192, 4
+DEVICE_SOLVER_SCANS, DEVICE_SOLVER_FROM = 2000, 128
+SOLVER_ATOL = 0.05
 SEED = 0
 LAPS = 2
 STEP = 0.08
@@ -450,7 +478,7 @@ def phase_slice(torch, dev, workdir):
         raise AssertionError("non-finite node poses")
     if stats["loop_closures"] < 1:
         raise AssertionError("the slice closed no loop")
-    return stats, rec, slam, records
+    return stats, rec, slam, records, (gt, gt_t)
 
 
 # --------------------------------------------------------------------------
@@ -585,6 +613,239 @@ def phase_async(torch, dev, records):
                 f"{r['mode']} differs from blocking: poses "
                 f"{r['max_pose_err']}, latest map {r['max_latest_map_err']}")
     return stats, async_rec
+
+
+# --------------------------------------------------------------------------
+# Phase 8: the BranchBound frontend settings through the launcher
+# --------------------------------------------------------------------------
+
+
+class MethodSpy:
+    """Wraps method ``name`` of ``cls`` while installed; ``around(fn, *args,
+    **kwargs)`` is called in place of each call and returns its result."""
+
+    def __init__(self, cls, name, around):
+        self.cls, self.name, self.fn = cls, name, getattr(cls, name)
+        fn = self.fn
+        setattr(cls, name, lambda *a, **kw: around(fn, *a, **kw))
+
+    def restore(self):
+        setattr(self.cls, self.name, self.fn)
+
+
+def phase_bb_frontend(torch, dev, workdir):
+    """``launcher.run`` on the bb_frontend settings, verbatim, online
+    (blocking frontend, synchronous backend) on the slice's log. Around
+    each ``process_scan`` it times the keyframes and counts the host
+    synchronizations that PyTorch's sync debug mode reports; around each
+    ``resolve_async`` it adds up the matches' ``frontier_overflow``."""
+    import warnings
+
+    from my_lidar_graph_slam_tpu_torch import launcher
+    from my_lidar_graph_slam_tpu_torch.models import scan_matchers
+    from my_lidar_graph_slam_tpu_torch.models import slam as slam_mod
+    from my_lidar_graph_slam_tpu_torch.utils import config
+    from my_lidar_graph_slam_tpu_torch.utils.metrics import MetricManager
+
+    cfg = config.load(BB_FRONTEND)
+    if cfg.get("Frontend.LocalSlam.ScanMatcherType") != "BranchBound":
+        raise AssertionError("the bb_frontend settings do not match with BB")
+    latest = int(cfg.get("Tpu.LatestMapSize", 1024))
+    out = os.path.join(workdir, "bb_frontend")
+    key_ms, key_syncs, overflow = [], [], []
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+
+        def timed_scan(fn, *args, **kwargs):
+            n0, t0 = len(caught), time.perf_counter()
+            updated = fn(*args, **kwargs)
+            if updated:
+                key_ms.append(1e3 * (time.perf_counter() - t0))
+                key_syncs.append(len(caught) - n0)
+            return updated
+
+        def counted_resolve(fn, *args, **kwargs):
+            summary = fn(*args, **kwargs)
+            overflow.append(int(summary.frontier_overflow))
+            return summary
+
+        spies = [MethodSpy(slam_mod.LidarGraphSlam, "process_scan",
+                           timed_scan),
+                 MethodSpy(scan_matchers.AsyncMatcher, "resolve_async",
+                           counted_resolve)]
+        MetricManager.reset_instance()
+        rec = start_recording(latest)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            probe = len(caught)
+            torch.zeros(1, device=dev).cpu()
+            sync_counting = len(caught) > probe
+            t0 = time.perf_counter()
+            run = launcher.run(os.path.join(workdir, LOG_NAME), BB_FRONTEND,
+                               out, threaded_backend=False,
+                               gt_path=os.path.join(workdir, GT_NAME))
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+            for spy in spies:
+                spy.restore()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = stop_recording(rec, "the bb_frontend run")
+
+    suffixes = (".png", ".json", "-latest.png", "-latest.json",
+                ".posegraph.json", "-posegraph.png", ".ckpt.npz",
+                ".metrics.json")
+    missing = [x for x in suffixes if not os.path.exists(out + x)]
+    if missing:
+        raise AssertionError(f"bb_frontend artifacts missing: {missing}")
+    stats = {
+        "scans": run["num_scans"], "nodes": run["num_nodes"],
+        "edges": run["num_edges"], "loop_closures": run["num_loop_closures"],
+        "loop_edges": run["num_edges"] - (run["num_nodes"] - 1),
+        "ate_aligned_m": run["ate_rmse_m"], "seconds": run["elapsed_s"],
+        "scans_per_s": run["scans_per_s"], "wall_s": wall,
+        "keyframe_ms_median": float(np.median(key_ms)),
+        "bb_matches": len(overflow),
+        "frontier_overflow_total": int(sum(overflow)),
+        "matches_with_overflow": int(sum(o > 0 for o in overflow)),
+        "host_syncs_per_keyframe": float(np.mean(key_syncs))
+        if sync_counting else None,
+        "host_syncs_per_keyframe_median": float(np.median(key_syncs))
+        if sync_counting else None,
+        "host_syncs_max_keyframe": int(max(key_syncs))
+        if sync_counting else None,
+        "launches": launches,
+    }
+    log("  " + json.dumps(stats))
+    if stats["loop_closures"] < 1:
+        raise AssertionError("the bb_frontend run closed no loop")
+    if not np.isfinite(stats["ate_aligned_m"]):
+        raise AssertionError("the bb_frontend run's ATE is not finite")
+    if len(overflow) != stats["nodes"] - 1:
+        raise AssertionError("not every keyframe after the first was "
+                             "matched by branch-and-bound")
+    return stats, rec
+
+
+# --------------------------------------------------------------------------
+# Phase 9: the device pose-graph solver
+# --------------------------------------------------------------------------
+
+
+def set_tf32(torch, on: bool):
+    torch.backends.cuda.matmul.allow_tf32 = on
+    torch.backends.cudnn.allow_tf32 = on
+    torch.set_float32_matmul_precision("high" if on else "highest")
+
+
+def solver_rows(torch, dev, name, graph, lm_config, tf32_modes):
+    """``graph`` solved by the host solver once and on the card three
+    times per TF32 mode; fails unless the card's poses are finite and
+    within SOLVER_ATOL of the host's in x and y."""
+    from my_lidar_graph_slam_tpu_torch.models import (optimizer_host,
+                                                      optimizer_lm)
+
+    snap = graph.snapshot()
+    n = graph.num_nodes
+    t0 = time.perf_counter()
+    host = optimizer_host.optimize_host(snap, lm_config)
+    host_ms = 1e3 * (time.perf_counter() - t0)
+    rows, first = [], None
+    for tf32 in tf32_modes:
+        set_tf32(torch, tf32)
+        try:
+            runs = []
+            for _ in range(3):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                res = optimizer_lm.optimize(snap, lm_config, dev)
+                poses = res.poses.cpu().numpy()[:n]
+                runs.append((1e3 * (time.perf_counter() - t0), poses, res))
+        finally:
+            set_tf32(torch, False)
+        poses = [p for _, p, _ in runs]
+        if first is None:
+            first = poses[0]
+        res = runs[0][2]
+        row = {
+            "graph": name, "tf32": tf32, "N": n, "E": graph.num_edges,
+            "lm_iterations": res.iterations,
+            "cg_iterations": res.cg_iterations,
+            "host_syncs": res.host_syncs,
+            "device_ms_median": float(np.median([ms for ms, _, _ in runs])),
+            "device_ms": [ms for ms, _, _ in runs],
+            "host_ms": host_ms, "host_lm_iterations": host.iterations,
+            "max_xy_err_vs_host_m": float(max(
+                np.abs(p[:, :2] - host.poses[:n, :2]).max() for p in poses)),
+            "run_to_run_max_diff": float(max(
+                np.abs(p - poses[0]).max() for p in poses)),
+            "max_diff_vs_tf32_off": float(np.abs(poses[0] - first).max()),
+            "total_error": float(res.total_error),
+            "host_total_error": float(host.total_error)}
+        log("  " + json.dumps(row))
+        if not all(np.isfinite(p).all() for p in poses):
+            raise AssertionError(f"solver {name}: non-finite poses")
+        if row["max_xy_err_vs_host_m"] > SOLVER_ATOL:
+            raise AssertionError(
+                f"solver {name}: {row['max_xy_err_vs_host_m']} m from the "
+                "host solver")
+        rows.append(row)
+    return rows
+
+
+def phase_solver(torch, dev, slam4, records, gt, gt_t):
+    """(a) phase 4's final graph and (b) the ring of RING_NODES, solved on
+    the card and on the host; (c) the default settings over the log's
+    first DEVICE_SOLVER_SCANS scans with the device solver from
+    DEVICE_SOLVER_FROM nodes, inside ``Backend.run_once``."""
+    from my_lidar_graph_slam_tpu_torch.io import synth
+    from my_lidar_graph_slam_tpu_torch.utils import ate
+    from my_lidar_graph_slam_tpu_torch.utils.metrics import MetricManager
+
+    lm_config = slam4.backend.lm_config
+    rows = solver_rows(torch, dev, "phase 4 final graph", slam4.graph,
+                       lm_config, (False,))
+    ring, _ = synth.ring_graph(RING_NODES, seed=SEED, n_loops=RING_LOOPS)
+    rows += solver_rows(torch, dev, f"ring {RING_NODES}", ring, lm_config,
+                        (False, True))
+
+    slam = slice_slam(dev)
+    slam.backend.host_solver_max_nodes = DEVICE_SOLVER_FROM
+    MetricManager.reset_instance()
+    rec = start_recording(slam.builder.config.latest_map_size)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for scan in records[:DEVICE_SOLVER_SCANS]:
+        slam.process_scan(scan, scan.odom_pose)
+    slam.stop_backend()
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    launches = stop_recording(rec, "the device-solver run")
+    g = slam.graph
+    poses = g.node_poses()
+    times = slam.scans.timestamps[g.scan_ids[:g.num_nodes]]
+    solve = MetricManager.instance().distributions(
+        "PoseGraphSolveTime").to_dict()
+    backend = {
+        "scans": DEVICE_SOLVER_SCANS, "nodes": g.num_nodes,
+        "edges": g.num_edges,
+        "loop_closures": slam.backend.num_loop_closures,
+        "device_solves": slam.backend.num_device_solves,
+        "solve_ms_mean": 1e3 * solve["mean"],
+        "solve_ms_max": 1e3 * solve["max"],
+        "ate_aligned_m": ate.ate_rmse(poses, gt, est_times=times,
+                                      gt_times=gt_t),
+        "seconds": elapsed, "launches": launches}
+    log("  " + json.dumps(backend))
+    if backend["loop_closures"] < 1 or backend["device_solves"] < 1:
+        raise AssertionError("the device-solver run closed no loop on the "
+                             "card")
+    if not np.isfinite(backend["ate_aligned_m"]) or \
+            not np.isfinite(poses).all():
+        raise AssertionError("the device-solver run is not finite")
+    return {"solves": rows, "backend": backend}, rec
 
 
 # --------------------------------------------------------------------------
@@ -933,12 +1194,12 @@ def main() -> int:
 
     smi = smi_line()
     kind = torch.cuda.get_device_name(0)
-    log(f"[1/7] device: {smi} | torch {torch.__version__} cuda "
+    log(f"[1/9] device: {smi} | torch {torch.__version__} cuda "
         f"{torch.version.cuda} | {kind}")
 
     t0 = time.perf_counter()
     loader.build_all()
-    log(f"[2/7] build: {time.perf_counter() - t0:.2f} s")
+    log(f"[2/9] build: {time.perf_counter() - t0:.2f} s")
     for name, text in loader.ptxas_report.items():
         for line in text.splitlines():
             if "registers" in line or "spill" in line:
@@ -951,24 +1212,35 @@ def main() -> int:
         # beam capacity for NB.
         dev = torch.device("cuda")
         errs = phase_kernels(torch, dev, 1024)
-        log(f"[3/7] kernels vs plain: ok in {time.perf_counter() - t0:.1f} s")
+        log(f"[3/9] kernels vs plain: ok in {time.perf_counter() - t0:.1f} s")
 
         t0 = time.perf_counter()
-        stats, rec, slam, records = phase_slice(torch, dev, workdir)
-        log(f"[4/7] slice: ok in {time.perf_counter() - t0:.1f} s")
+        stats, rec, slam, records, truth = phase_slice(torch, dev, workdir)
+        log(f"[4/9] slice: ok in {time.perf_counter() - t0:.1f} s")
 
         t0 = time.perf_counter()
         launcher_stats, rec6 = phase_launcher(torch, workdir)
-        log(f"[6/7] launcher, robust settings, replay: ok in "
+        log(f"[6/9] launcher, robust settings, replay: ok in "
             f"{time.perf_counter() - t0:.1f} s")
 
         t0 = time.perf_counter()
         async_stats, rec7 = phase_async(torch, dev, records)
-        log(f"[7/7] async against blocking: ok in "
+        log(f"[7/9] async against blocking: ok in "
+            f"{time.perf_counter() - t0:.1f} s")
+
+        t0 = time.perf_counter()
+        bb_stats, rec8 = phase_bb_frontend(torch, dev, workdir)
+        log(f"[8/9] bb_frontend settings, online: ok in "
             f"{time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
-    sources = [("slice", rec), ("launcher", rec6), ("async", rec7)]
+    solver_stats, rec9 = phase_solver(torch, dev, slam, records, *truth)
+    log(f"[9/9] device pose-graph solver: ok in "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    sources = [("slice", rec), ("launcher", rec6), ("async", rec7),
+               ("bb_frontend", rec8), ("device_solver", rec9)]
     rows = phase_times(torch, sources, slam, errs)
     for r in rows:
         lib = "n/a" if r["library_ms"] is None else \
@@ -984,10 +1256,11 @@ def main() -> int:
             f"{r['launches']} launches {json.dumps(r['launches_by_phase'])}"
             f", inputs of the {r['phase']} run, max|err| vs plain "
             f"{r['max_abs_err']:.3g} {json.dumps(r['shape'])}")
-    log(f"[5/7] times: ok in {time.perf_counter() - t0:.1f} s")
+    log(f"[5/9] times: ok in {time.perf_counter() - t0:.1f} s")
 
     print(json.dumps({"kernels": rows, "slice": stats,
-                      "launcher": launcher_stats, "async": async_stats}))
+                      "launcher": launcher_stats, "async": async_stats,
+                      "bb_frontend": bb_stats, "solver": solver_stats}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

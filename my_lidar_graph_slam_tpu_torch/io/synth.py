@@ -4,7 +4,9 @@ Subset of ``my_lidar_graph_slam_tpu/io/synth.py`` (NumPy only): the
 intel.clf-like world and route, the constant-speed trajectory, exact
 segment ray casting, the odometry/range-noise simulator and the CARMEN
 writer. With the same seed, :func:`write_carmen_log` writes a log
-byte-identical to the JAX package's.
+byte-identical to the JAX package's. :func:`ring_graph` builds the noisy
+ring pose graph of the JAX package's solver tests
+(``tests/test_optimizer_solvers.py::make_ring``).
 """
 
 from __future__ import annotations
@@ -14,6 +16,7 @@ from typing import List, Tuple
 
 import numpy as np
 
+from my_lidar_graph_slam_tpu_torch.models.pose_graph import PoseGraph
 from my_lidar_graph_slam_tpu_torch.sensor.data import RawScan
 from my_lidar_graph_slam_tpu_torch.utils import se2
 
@@ -233,3 +236,34 @@ def write_carmen_log(path: str, scans: List[RawScan],
             parts.extend(["%.6f" % s.timestamp, "synth",
                           "%.6f" % s.timestamp])
             f.write(" ".join(parts) + "\n")
+
+
+def ring_graph(n: int, seed: int = 0, n_loops: int = 4,
+               noise: float = 0.01) -> Tuple[PoseGraph, np.ndarray]:
+    """A pose graph of ``n`` nodes on a 10 m circle: odometry edges with
+    Gaussian noise (``noise`` per component, from ``seed``) chained from
+    the first true pose, and loop edges from every ``n // n_loops``-th
+    node to the node opposite it, at their true relative pose. Returns
+    (graph, true poses [n, 3]); the same graph, node for node, as
+    ``make_ring`` of the JAX package's solver tests."""
+    rng = np.random.default_rng(seed)
+    ang = 2 * np.pi * np.arange(n) / n
+    gt = np.stack([10 * np.cos(ang), 10 * np.sin(ang), ang + np.pi / 2],
+                  axis=-1)
+    graph = PoseGraph()
+    info = np.diag([100.0, 100.0, 400.0])
+    pose = gt[0].copy()
+    graph.append_node(pose, 0)
+    for k in range(1, n):
+        rel = se2.inverse_compound_np(gt[k - 1], gt[k]) + \
+            rng.normal(0, noise, 3)
+        pose = se2.compound_np(pose, rel)
+        graph.append_node(pose, k)
+        graph.append_edge(k - 1, k, rel, info)
+    for k in range(0, n, max(1, n // n_loops)):
+        j = (k + n // 2) % n
+        graph.append_edge(min(k, j), max(k, j),
+                          se2.inverse_compound_np(gt[min(k, j)],
+                                                  gt[max(k, j)]),
+                          np.diag([1e3, 1e3, 4e3]))
+    return graph, gt

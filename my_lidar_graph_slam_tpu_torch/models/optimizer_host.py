@@ -2,8 +2,8 @@
 
 Copy of ``my_lidar_graph_slam_tpu/models/optimizer_host.py`` (NumPy and
 SciPy only), with ``LMConfig`` and ``GAUGE`` copied from
-``my_lidar_graph_slam_tpu/models/optimizer_lm.py:36-60``. The device
-solver (matrix-free PCG) is not ported yet.
+``my_lidar_graph_slam_tpu/models/optimizer_lm.py:36-60``; the device
+solver (matrix-free PCG, ``optimizer_lm.py``) shares them.
 
 The reference solves the normal equations with Eigen SimplicialLDLT or CG on
 one CPU core (pose_graph_optimizer_lm.cpp:178-206). This module reproduces

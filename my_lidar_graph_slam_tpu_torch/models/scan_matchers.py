@@ -1,13 +1,14 @@
-"""Frontend scan-matcher strategy wrapper.
+"""Frontend scan-matcher strategy wrappers.
 
 Counterpart of ``my_lidar_graph_slam_tpu/models/scan_matchers.py:34-62,
-147-325``: :class:`CorrelativeMatcher` (ScanMatcherRealTimeCorrelative
+147-582``: :class:`CorrelativeMatcher` (ScanMatcherRealTimeCorrelative
 config, launcher_settings_default.json:42-50) on the exhaustive sweep path
-(``ops/matchers_sweep.py``). A match is one sequence of device launches and
-ONE host read of a packed [1, 16] result, started without blocking and
-read later (``match_async`` / ``resolve_async``); the blocking frontend
-resolves at once. The pruned gather path and the other matcher strategies
-are not ported yet.
+(``ops/matchers_sweep.py``), and the BranchBound, GridSearch, HillClimbing
+and LinearSolver strategies over ``ops/matchers.py``. Every strategy
+matches through one pair of calls: ``match_async`` launches the match and
+starts ONE host copy of a packed [1, 16] result without waiting, and
+``resolve_async`` waits for it; the blocking frontend resolves at once.
+The pruned gather path of the correlative matcher is not ported yet.
 
 Default greedy-endpoint parameters replicate the launcher's *effective*
 configuration, including the swapped (scale, sigma) constructor arguments
@@ -30,6 +31,7 @@ import torch
 
 from my_lidar_graph_slam_tpu_torch.ops import grid as gridops
 from my_lidar_graph_slam_tpu_torch.ops import matchers, matchers_sweep
+from my_lidar_graph_slam_tpu_torch.ops import pyramid as pyrops
 from my_lidar_graph_slam_tpu_torch.utils.metrics import MetricManager
 
 DEFAULT_GREEDY_PARAMS = (
@@ -50,68 +52,43 @@ def unpack_summary(packed: np.ndarray, initial_poses) -> matchers.MatchSummary:
         initial_pose=np.asarray(initial_poses, np.float32),
         estimated_pose=packed[:, 0:3],
         covariance=packed[:, 3:12].reshape(-1, 3, 3),
+        frontier_overflow=packed[:, 15].astype(np.int64),
     )
 
 
 class PendingMatch(NamedTuple):
-    """A match started by :meth:`CorrelativeMatcher.match_async`: its
-    packed [1, 16] result in a host buffer that belongs to this match
-    alone, and the CUDA event after the copy into it (``None`` on the
-    CPU, where the copy is done)."""
+    """A match started by ``match_async``: its packed [1, 16] result in a
+    host buffer that belongs to this match alone, and the CUDA event after
+    the copy into it (``None`` on the CPU, where the copy is done)."""
 
     host: torch.Tensor
     event: Optional[object]
 
 
-@dataclasses.dataclass
-class CorrelativeMatcher:
-    """ScanMatcherRealTimeCorrelative config: every (theta, dx, dy)
-    candidate of the window is scored (``low_resolution`` is kept for
-    config parity only)."""
+def scan_tensors(store, scan_ids, device) -> dict:
+    """The stored scans ``scan_ids`` as the matchers' keyword arguments on
+    ``device``: beams up to the store's bucket ([Q, NB]) and the per-scan
+    ranges, sensor offsets and total beam counts ([Q], [Q, 3])."""
+    ids = np.asarray(scan_ids)
+    nb = store.beam_bucket()
 
-    low_resolution: int = 5
-    range_x: float = 0.2
-    range_y: float = 0.2
-    range_theta: float = 0.5
-    scan_range_max: float = 20.0
-    usable_range_min: float = 0.01
-    usable_range_max: float = 20.0
-    cost_type: str = "greedy_endpoint"
-    greedy_params: tuple = DEFAULT_GREEDY_PARAMS
+    def up(arr):
+        return torch.from_numpy(np.ascontiguousarray(arr)).to(device)
 
-    def _window(self, res: float):
-        win_x = int(np.ceil(0.5 * self.range_x / res))
-        win_y = int(np.ceil(0.5 * self.range_y / res))
-        win_t = matchers.static_max_theta_window(
-            res, self.scan_range_max, self.range_theta)
-        return win_x, win_y, win_t
+    return dict(ranges=up(store.ranges[ids][:, :nb]),
+                angles=up(store.angles[ids][:, :nb]),
+                valid=up(store.valid[ids][:, :nb]),
+                scan_min_range=up(store.min_range[ids]),
+                scan_max_range=up(store.max_range[ids]),
+                rel_sensor_poses=up(store.rel_sensor_pose[ids]),
+                num_total_beams=up(store.raw_beams[ids].astype(np.float32)))
 
-    def _match_packed(self, grid: gridops.GridMap, store, scan_ids,
-                      poses: np.ndarray) -> torch.Tensor:
-        """The packed f32[Q, 16] device result of matching stored scans
-        ``scan_ids`` at ``poses`` f32[Q, 3] against ``grid``."""
-        win_x, win_y, win_t = self._window(grid.resolution)
-        ids = np.asarray(scan_ids)
-        nb = store.beam_bucket()
-        dev = grid.device
 
-        def up(arr):
-            return torch.from_numpy(np.ascontiguousarray(arr)).to(dev)
-
-        summary = matchers_sweep.correlative_match_sweep(
-            gridops.values(grid), grid, up(poses),
-            up(store.ranges[ids][:, :nb]), up(store.angles[ids][:, :nb]),
-            up(store.valid[ids][:, :nb]), up(store.min_range[ids]),
-            up(store.max_range[ids]), up(store.rel_sensor_pose[ids]),
-            self.scan_range_max, self.range_theta, self.usable_range_min,
-            self.usable_range_max, 0.0,
-            up(store.raw_beams[ids].astype(np.float32)),
-            win_x=win_x, win_y=win_y, win_theta_max=win_t,
-            cost_type=self.cost_type, greedy_params=self.greedy_params,
-            score_gate="correlative")
-        MetricManager.instance().counters("FrontendMxuMatches").increment(
-            len(ids))
-        return matchers_sweep.pack_summary(summary)
+class AsyncMatcher:
+    """``match_async``/``resolve_async`` over a strategy's
+    ``_match_packed(grid, store, scan_ids, poses)``, which returns the
+    packed f32[Q, 16] device result of matching stored scans at ``poses``
+    f32[Q, 3] against ``grid``."""
 
     def match_async(self, grid: gridops.GridMap, store, scan_id: int,
                     initial_pose) -> PendingMatch:
@@ -143,3 +120,172 @@ class CorrelativeMatcher:
         out = unpack_summary(pending.host.numpy(),
                              np.asarray(initial_pose, np.float32)[None, :])
         return matchers.MatchSummary(*(leaf[0] for leaf in out))
+
+
+def _poses(poses, device) -> torch.Tensor:
+    return torch.as_tensor(np.asarray(poses, np.float32), device=device)
+
+
+@dataclasses.dataclass
+class CorrelativeMatcher(AsyncMatcher):
+    """ScanMatcherRealTimeCorrelative config: every (theta, dx, dy)
+    candidate of the window is scored (``low_resolution`` is kept for
+    config parity only)."""
+
+    low_resolution: int = 5
+    range_x: float = 0.2
+    range_y: float = 0.2
+    range_theta: float = 0.5
+    scan_range_max: float = 20.0
+    usable_range_min: float = 0.01
+    usable_range_max: float = 20.0
+    cost_type: str = "greedy_endpoint"
+    greedy_params: tuple = DEFAULT_GREEDY_PARAMS
+
+    def _window(self, res: float):
+        win_x = int(np.ceil(0.5 * self.range_x / res))
+        win_y = int(np.ceil(0.5 * self.range_y / res))
+        win_t = matchers.static_max_theta_window(
+            res, self.scan_range_max, self.range_theta)
+        return win_x, win_y, win_t
+
+    def _match_packed(self, grid: gridops.GridMap, store, scan_ids,
+                      poses: np.ndarray) -> torch.Tensor:
+        win_x, win_y, win_t = self._window(grid.resolution)
+        scans = scan_tensors(store, scan_ids, grid.device)
+        summary = matchers_sweep.correlative_match_sweep(
+            gridops.values(grid), grid, _poses(poses, grid.device),
+            scans["ranges"], scans["angles"], scans["valid"],
+            scans["scan_min_range"], scans["scan_max_range"],
+            scans["rel_sensor_poses"], self.scan_range_max, self.range_theta,
+            self.usable_range_min, self.usable_range_max, 0.0,
+            scans["num_total_beams"], win_x=win_x, win_y=win_y,
+            win_theta_max=win_t, cost_type=self.cost_type,
+            greedy_params=self.greedy_params, score_gate="correlative")
+        MetricManager.instance().counters("FrontendMxuMatches").increment(
+            len(scan_ids))
+        return matchers_sweep.pack_summary(summary)
+
+
+@dataclasses.dataclass
+class BranchBoundMatcher(AsyncMatcher):
+    """ScanMatcherBranchBound config (launcher_settings_default.json:
+    132-141). As a frontend matcher it builds the pyramid on every call,
+    like ScanMatcherBranchBound::OptimizePose
+    (scan_matcher_branch_bound.cpp:37-39)."""
+
+    node_height_max: int = 6
+    range_x: float = 2.0
+    range_y: float = 2.0
+    range_theta: float = 1.0
+    scan_range_max: float = 20.0
+    usable_range_min: float = 0.01
+    usable_range_max: float = 20.0
+    frontier_cap: int = 4096
+    cost_type: str = "greedy_endpoint"
+    greedy_params: tuple = DEFAULT_GREEDY_PARAMS
+
+    def _match_packed(self, grid, store, scan_ids, poses) -> torch.Tensor:
+        res = grid.resolution
+        pyr = pyrops.build_pyramid(gridops.values(grid),
+                                   self.node_height_max)
+        summary = matchers.branch_bound_match(
+            pyr, grid, _poses(poses, grid.device),
+            **scan_tensors(store, scan_ids, grid.device),
+            scan_range_max=self.scan_range_max,
+            range_theta=self.range_theta,
+            usable_range_min=self.usable_range_min,
+            usable_range_max=self.usable_range_max,
+            normalized_score_threshold=0.0,
+            node_height_max=self.node_height_max,
+            win_x=int(np.ceil(0.5 * self.range_x / res)),
+            win_y=int(np.ceil(0.5 * self.range_y / res)),
+            win_theta_max=matchers.static_max_theta_window(
+                res, self.scan_range_max, self.range_theta),
+            frontier_cap=self.frontier_cap, cost_type=self.cost_type,
+            greedy_params=self.greedy_params)
+        return matchers_sweep.pack_summary(summary)
+
+
+@dataclasses.dataclass
+class GridSearchMatcher(AsyncMatcher):
+    """ScanMatcherGridSearch config
+    (launcher_settings_default.json:71-82)."""
+
+    range_x: float = 2.0
+    range_y: float = 2.0
+    range_theta: float = 0.5
+    step_x: float = 0.05
+    step_y: float = 0.05
+    step_theta: float = 0.005
+    usable_range_min: float = 0.01
+    usable_range_max: float = 20.0
+    cost_type: str = "greedy_endpoint"
+    greedy_params: tuple = DEFAULT_GREEDY_PARAMS
+
+    def _match_packed(self, grid, store, scan_ids, poses) -> torch.Tensor:
+        summary = matchers.grid_search_match(
+            gridops.values(grid), grid, _poses(poses, grid.device),
+            **scan_tensors(store, scan_ids, grid.device),
+            usable_range_min=self.usable_range_min,
+            usable_range_max=self.usable_range_max,
+            normalized_score_threshold=0.0, step_x=self.step_x,
+            step_y=self.step_y, step_t=self.step_theta,
+            nx=2 * int(np.floor(0.5 * self.range_x / self.step_x)) + 1,
+            ny=2 * int(np.floor(0.5 * self.range_y / self.step_y)) + 1,
+            nt=2 * int(np.floor(0.5 * self.range_theta /
+                                self.step_theta)) + 1,
+            cost_type=self.cost_type, greedy_params=self.greedy_params)
+        return matchers_sweep.pack_summary(summary)
+
+
+@dataclasses.dataclass
+class HillClimbingMatcher(AsyncMatcher):
+    """ScanMatcherHillClimbing config
+    (launcher_settings_default.json:22-29)."""
+
+    linear_step: float = 0.1
+    angular_step: float = 0.1
+    max_iterations: int = 100
+    max_refinements: int = 5
+    usable_range_min: float = 0.01
+    usable_range_max: float = 20.0
+    cost_type: str = "greedy_endpoint"
+    greedy_params: tuple = DEFAULT_GREEDY_PARAMS
+
+    def _match_packed(self, grid, store, scan_ids, poses) -> torch.Tensor:
+        summary = matchers.hill_climbing_match(
+            gridops.values(grid), grid, _poses(poses, grid.device),
+            **scan_tensors(store, scan_ids, grid.device),
+            usable_range_min=self.usable_range_min,
+            usable_range_max=self.usable_range_max,
+            linear_step=self.linear_step, angular_step=self.angular_step,
+            max_iterations=self.max_iterations,
+            max_refinements=self.max_refinements,
+            cost_type=self.cost_type, greedy_params=self.greedy_params)
+        return matchers_sweep.pack_summary(summary)
+
+
+@dataclasses.dataclass
+class LinearSolverMatcher(AsyncMatcher):
+    """ScanMatcherLinearSolver config
+    (launcher_settings_default.json:31-40)."""
+
+    max_iterations: int = 100
+    convergence_threshold: float = 1e-3
+    usable_range_min: float = 0.01
+    usable_range_max: float = 20.0
+    translation_regularizer: float = 1e-3
+    rotation_regularizer: float = 1e-3
+
+    def _match_packed(self, grid, store, scan_ids, poses) -> torch.Tensor:
+        summary = matchers.linear_solver_match(
+            gridops.values(grid), grid, _poses(poses, grid.device),
+            **scan_tensors(store, scan_ids, grid.device),
+            usable_range_min=self.usable_range_min,
+            usable_range_max=self.usable_range_max,
+            translation_regularizer=self.translation_regularizer,
+            rotation_regularizer=self.rotation_regularizer,
+            convergence_threshold=self.convergence_threshold,
+            max_iterations=self.max_iterations)
+        return matchers_sweep.pack_summary(summary)

@@ -96,6 +96,12 @@ def world_to_cell(grid: GridMap, points: torch.Tensor):
     return idx[..., 0], idx[..., 1]
 
 
+def world_to_cell_float(grid: GridMap, points: torch.Tensor):
+    """World -> fractional cell index (grid_map.hpp:793-803)."""
+    rel = (points - grid.origin) / scalar(grid.resolution, points.device)
+    return rel[..., 0], rel[..., 1]
+
+
 def scalar(value: float, device) -> torch.Tensor:
     """0-d float32 tensor on ``device``. Dividing by it is a true division
     everywhere; dividing a CUDA tensor by a Python float multiplies by the

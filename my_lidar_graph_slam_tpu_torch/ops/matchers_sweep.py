@@ -9,7 +9,8 @@ cost/covariance. Window scores come from the K1 kernel
 (``ops/cuda/correlate.py``), which takes any window directly, so the JAX
 package's 7x7 block assembly has no counterpart here; the cost and
 covariance at the best pose come from the K2 kernel
-(``ops/cuda/greedy_cost.py``). :func:`correlative_match_sweep_multi` folds
+(``ops/cuda/greedy_cost.py``), or, with the square-error cost on one map,
+from ``ops/cost.py``. :func:`correlative_match_sweep_multi` folds
 several stacked maps into one set of launches through ``map_idx``.
 
 Exact by construction: every candidate in the window is scored.
@@ -141,9 +142,11 @@ def _sweep(value_map, origin, resolution: float, map_idx, initial_poses,
     """The sweep on ``value_map`` f32[H, W] with ``origin`` f32[2], or on
     a stack f32[M, H, W] with ``map_idx`` i32[Q] and ``origin`` f32[Q, 2].
     """
-    if cost_type != "greedy_endpoint":
+    if cost_type not in ("greedy_endpoint", "square_error"):
+        raise ValueError(f"unknown cost type {cost_type!r}")
+    if cost_type == "square_error" and map_idx is not None:
         raise NotImplementedError(
-            f"cost type {cost_type!r} is not ported yet")
+            "the square-error cost over stacked maps is not ported yet")
     dev = ranges.device
     q = ranges.shape[0]
     f32 = torch.float32
@@ -203,15 +206,15 @@ def _sweep(value_map, origin, resolution: float, map_idx, initial_poses,
     cost_mask = matchers.range_gate(
         valid, ranges, usable_range_min, usable_range_max,
         scan_min_range[:, None], scan_max_range[:, None])
-    gp = dict(greedy_params)
-    c, cov = greedy_cost.greedy_cost_cov(
-        value_map, origin, best_sensor_poses, ranges, angles,
-        cost_mask, resolution,
-        hit_and_missed_dist=gp.get("hit_and_missed_dist", 0.075),
-        occupancy_threshold=gp.get("occupancy_threshold", 0.1),
-        kernel_size=gp.get("kernel_size", 1),
-        standard_deviation=gp.get("standard_deviation", 1.0),
-        scaling_factor=gp.get("scaling_factor", 0.05), map_idx=map_idx)
+    if map_idx is None:
+        c, cov = matchers._cost_and_covariance(
+            cost_type, value_map,
+            gridops.GridMap(None, None, origin, resolution),
+            best_sensor_poses, ranges, angles, cost_mask, greedy_params)
+    else:
+        c, cov = greedy_cost.greedy_cost_cov(
+            value_map, origin, best_sensor_poses, ranges, angles,
+            cost_mask, resolution, map_idx=map_idx, **dict(greedy_params))
 
     return matchers.MatchSummary(
         pose_found=pose_found,
@@ -220,13 +223,15 @@ def _sweep(value_map, origin, resolution: float, map_idx, initial_poses,
         initial_pose=initial_poses,
         estimated_pose=se2.move_backward(best_sensor_poses, rel_sensor_poses),
         covariance=cov,
+        frontier_overflow=torch.zeros((q,), dtype=torch.int64, device=dev),
     )
 
 
 def pack_summary(summary: matchers.MatchSummary) -> torch.Tensor:
     """f32[Q, 16] (pose 0:3, covariance 3:12, score 12, cost 13, found 14,
-    exact 15), so the host reads a match back in ONE transfer
-    (``scan_matchers._pack_summary`` of the JAX package)."""
+    frontier overflow 15), so the host reads a match back in ONE transfer
+    (``scan_matchers._pack_summary`` of the JAX package, whose column 15,
+    an exactness flag, is always 1 where the port's count is 0)."""
     q = summary.estimated_pose.shape[0]
     return torch.cat([
         summary.estimated_pose,
@@ -234,6 +239,5 @@ def pack_summary(summary: matchers.MatchSummary) -> torch.Tensor:
         summary.normalized_score[:, None],
         summary.normalized_cost[:, None],
         summary.pose_found[:, None].to(torch.float32),
-        torch.ones((q, 1), dtype=torch.float32,
-                   device=summary.estimated_pose.device),
+        summary.frontier_overflow[:, None].to(torch.float32),
     ], dim=1)

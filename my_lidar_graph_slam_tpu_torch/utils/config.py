@@ -7,10 +7,14 @@ component is selected by a ``<X>Type`` string plus a ``<X>ConfigGroup``
 name pointing at its settings group. The ``Tpu`` group's keys (dense map
 sizes, beam capacity, ray-step cap) are read as they are.
 
-Ported strategies: the RealTimeCorrelative scan matcher with the
-GreedyEndpoint cost, the Nearest loop searcher, the BranchBound and Empty
-loop detectors, and the LM optimizer (host solver). Any other type raises
-``NotImplementedError`` ("not ported yet").
+Ported strategies: every type the JAX factories accept — the
+RealTimeCorrelative, BranchBound, GridSearch, HillClimbing and
+LinearSolver scan matchers with the GreedyEndpoint or SquareError cost,
+the Nearest loop searcher, the BranchBound, GridSearch and Empty loop
+detectors, and the LM optimizer (host solver below the backend's
+``host_solver_max_nodes``, device solver above) — except the
+RealTimeCorrelative loop detector, which raises ``NotImplementedError``
+("not ported yet"). Unknown types raise ``ValueError``.
 """
 
 from __future__ import annotations
@@ -87,30 +91,67 @@ def _greedy_params(root: Config, group: str) -> tuple:
 
 def _cost_settings(root: Config, cost_type: str, group: str):
     """Returns (cost_type_str, greedy_params, usable_min, usable_max)."""
-    if cost_type != "GreedyEndpoint":
-        raise _not_ported("cost type", cost_type)
     g = root.group(group)
-    return ("greedy_endpoint", _greedy_params(root, group),
-            float(g.get("UsableRangeMin", 0.01)),
-            float(g.get("UsableRangeMax", 50.0)))
+    usable_min = float(g.get("UsableRangeMin", 0.01))
+    usable_max = float(g.get("UsableRangeMax", 50.0))
+    if cost_type == "GreedyEndpoint":
+        return "greedy_endpoint", _greedy_params(root, group), \
+            usable_min, usable_max
+    if cost_type == "SquareError":
+        return "square_error", (), usable_min, usable_max
+    raise ValueError(f"unknown cost type: {cost_type}")
 
 
 def create_scan_matcher(root: Config, matcher_type: str, group: str):
     """CreateScanMatcher (slam_launcher.cpp:325-342)."""
-    if matcher_type != "RealTimeCorrelative":
-        raise _not_ported("scan matcher", matcher_type)
     g = root.group(group)
+    if matcher_type == "LinearSolver":
+        gcost = root.group(g.get("CostConfigGroup", "CostSquareError"))
+        return scan_matchers.LinearSolverMatcher(
+            max_iterations=int(g.get("NumOfIterationsMax", 3)),
+            convergence_threshold=float(g.get("ConvergenceThreshold", 1e-2)),
+            usable_range_min=float(gcost.get("UsableRangeMin", 0.01)),
+            usable_range_max=float(gcost.get("UsableRangeMax", 50.0)),
+            translation_regularizer=float(
+                g.get("TranslationRegularizer", 1e-3)),
+            rotation_regularizer=float(g.get("RotationRegularizer", 1e-3)))
+    if matcher_type not in ("RealTimeCorrelative", "BranchBound",
+                            "GridSearch", "HillClimbing"):
+        raise ValueError(f"unknown scan matcher type: {matcher_type}")
     cost_type, gp, umin, umax = _cost_settings(
         root, g.get("CostType", "GreedyEndpoint"),
         g.get("CostConfigGroup", "CostGreedyEndpoint"))
-    return scan_matchers.CorrelativeMatcher(
-        low_resolution=int(g.get("LowResolutionMapWinSize", 10)),
-        range_x=float(g.get("SearchRangeX", 0.75)),
-        range_y=float(g.get("SearchRangeY", 0.75)),
-        range_theta=float(g.get("SearchRangeTheta", 0.5)),
-        scan_range_max=float(g.get("ScanRangeMax", 20.0)),
-        usable_range_min=umin, usable_range_max=umax,
-        cost_type=cost_type, greedy_params=gp)
+    common = dict(usable_range_min=umin, usable_range_max=umax,
+                  cost_type=cost_type, greedy_params=gp)
+    if matcher_type == "RealTimeCorrelative":
+        return scan_matchers.CorrelativeMatcher(
+            low_resolution=int(g.get("LowResolutionMapWinSize", 10)),
+            range_x=float(g.get("SearchRangeX", 0.75)),
+            range_y=float(g.get("SearchRangeY", 0.75)),
+            range_theta=float(g.get("SearchRangeTheta", 0.5)),
+            scan_range_max=float(g.get("ScanRangeMax", 20.0)), **common)
+    if matcher_type == "BranchBound":
+        return scan_matchers.BranchBoundMatcher(
+            node_height_max=int(g.get("NodeHeightMax", 6)),
+            range_x=float(g.get("SearchRangeX", 2.0)),
+            range_y=float(g.get("SearchRangeY", 2.0)),
+            range_theta=float(g.get("SearchRangeTheta", 1.0)),
+            scan_range_max=float(g.get("ScanRangeMax", 20.0)),
+            frontier_cap=int(root.get("Tpu.BranchBoundFrontierCap", 4096)),
+            **common)
+    if matcher_type == "GridSearch":
+        return scan_matchers.GridSearchMatcher(
+            range_x=float(g.get("SearchRangeX", 2.0)),
+            range_y=float(g.get("SearchRangeY", 2.0)),
+            range_theta=float(g.get("SearchRangeTheta", 0.5)),
+            step_x=float(g.get("SearchStepX", 0.05)),
+            step_y=float(g.get("SearchStepY", 0.05)),
+            step_theta=float(g.get("SearchStepTheta", 0.005)), **common)
+    return scan_matchers.HillClimbingMatcher(
+        linear_step=float(g.get("LinearStep", 0.1)),
+        angular_step=float(g.get("AngularStep", 0.1)),
+        max_iterations=int(g.get("MaxIterations", 100)),
+        max_refinements=int(g.get("MaxNumOfRefinements", 5)), **common)
 
 
 def create_loop_searcher(root: Config, searcher_type: str, group: str):
@@ -129,13 +170,26 @@ def create_loop_detector(root: Config, detector_type: str, group: str):
     """CreateLoopDetector (slam_launcher.cpp:482-497)."""
     if detector_type == "Empty":
         return lc.LoopDetectorEmpty()
-    if detector_type != "BranchBound":
+    if detector_type == "RealTimeCorrelative":
         raise _not_ported("loop detector", detector_type)
+    if detector_type not in ("BranchBound", "GridSearch"):
+        raise ValueError(f"unknown loop detector type: {detector_type}")
     g = root.group(group)
     sm_group = root.group(g.get("ScanMatcherConfigGroup"))
     _, gp, umin, umax = _cost_settings(
         root, sm_group.get("CostType", "GreedyEndpoint"),
         sm_group.get("CostConfigGroup", "CostGreedyEndpoint"))
+    if detector_type == "GridSearch":
+        return lc.LoopDetectorGridSearch(
+            score_threshold=float(g.get("ScoreThreshold", 0.8)),
+            range_x=float(sm_group.get("SearchRangeX", 2.0)),
+            range_y=float(sm_group.get("SearchRangeY", 2.0)),
+            range_theta=float(sm_group.get("SearchRangeTheta", 0.5)),
+            step_x=float(sm_group.get("SearchStepX", 0.05)),
+            step_y=float(sm_group.get("SearchStepY", 0.05)),
+            step_theta=float(sm_group.get("SearchStepTheta", 0.005)),
+            usable_range_min=umin, usable_range_max=umax,
+            greedy_params=gp)
     return lc.LoopDetectorBranchBound(
         score_threshold=float(g.get("ScoreThreshold", 0.8)),
         node_height_max=int(sm_group.get("NodeHeightMax", 6)),
@@ -252,7 +306,7 @@ def create_slam(root: Config, device=None,
         root,
         be.get("LoopDetectorType", "GridSearch"),
         be.get("LoopDetectorConfigGroup", "LoopDetectorGridSearch"))
-    backend = slam.Backend(searcher, detector, lm_cfg)
+    backend = slam.Backend(searcher, detector, lm_cfg, device=dev)
 
     return slam.LidarGraphSlam(frontend, backend, builder, PoseGraph(),
                                threaded_backend=threaded_backend)

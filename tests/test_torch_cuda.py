@@ -9,6 +9,7 @@ conftest imports JAX, which that machine need not have).
 import os
 import shutil
 
+import numpy as np
 import pytest
 import torch
 
@@ -202,3 +203,118 @@ def test_greedy_cost_core_bit_equal_and_self_clearing(dev, kernel_size, q):
     torch.cuda.synchronize()
     assert torch.equal(got, ref)
     assert torch.equal(again, got)
+
+
+# --------------------------------------------------------------------------
+# The device pose-graph solver and the search matchers on the card.
+# --------------------------------------------------------------------------
+
+
+def test_device_solver_ring_8192_with_tf32_on(dev):
+    """The 8192-node ring solved on the card with TF32 turned on for
+    matmul: the solver multiplies and sums its 3x3 blocks itself, so its
+    poses stay finite and within 0.05 m of the host solver's
+    (tests/test_optimizer_solvers.py:100)."""
+    from my_lidar_graph_slam_tpu_torch.io import synth
+    from my_lidar_graph_slam_tpu_torch.models import (optimizer_host,
+                                                      optimizer_lm)
+
+    graph, _ = synth.ring_graph(8192, seed=0, n_loops=4)
+    snap = graph.snapshot()
+    cfg = optimizer_lm.LMConfig(loss_scale=0.01, error_tolerance=1e-4)
+    host = optimizer_host.optimize_host(snap, cfg)
+    before = (torch.backends.cuda.matmul.allow_tf32,
+              torch.get_float32_matmul_precision())
+    torch.backends.cuda.matmul.allow_tf32 = True
+    torch.set_float32_matmul_precision("high")
+    try:
+        res = optimizer_lm.optimize(snap, cfg, dev)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = before[0]
+        torch.set_float32_matmul_precision(before[1])
+    poses = res.poses.cpu().numpy()[:8192]
+    assert poses.shape == (8192, 3) and bool(np.isfinite(poses).all())
+    np.testing.assert_allclose(poses[:, :2], host.poses[:8192, :2],
+                               rtol=0, atol=0.05)
+
+
+def _search_scene():
+    """A 0.05 m map of the synthetic intel world from three scans, and a
+    scan taken 0.12 m and 0.05 rad away from the matchers' start pose, on
+    the CPU."""
+    from my_lidar_graph_slam_tpu_torch.io import synth
+    from my_lidar_graph_slam_tpu_torch.ops import grid as gridops
+    from my_lidar_graph_slam_tpu_torch.ops import raycast
+
+    segs = synth.intel_world()
+    beams = np.linspace(-np.pi / 2, np.pi / 2, 181)
+    start = np.array([-14.0, -9.0, 0.3])
+    g = gridops.empty(256, 256, 0.05, center=start[:2], device="cpu")
+    for dp in ([0.0, 0.0, 0.0], [0.2, -0.1, 0.05], [-0.15, 0.1, -0.05]):
+        p = start + np.asarray(dp)
+        r = synth.raycast_segments(p[:2], p[2] + beams, segs, 12.0)
+        g = raycast.integrate_scan(
+            g, torch.tensor(p, dtype=torch.float32),
+            torch.tensor(r, dtype=torch.float32),
+            torch.tensor(beams, dtype=torch.float32),
+            torch.ones(181, dtype=torch.bool), 0.01, 12.0, max_steps=256)
+    true = start + np.array([0.12, -0.08, 0.05])
+    r = synth.raycast_segments(true[:2], true[2] + beams, segs, 12.0)
+    scan = dict(
+        ranges=torch.tensor(r, dtype=torch.float32)[None],
+        angles=torch.tensor(beams, dtype=torch.float32)[None],
+        valid=torch.ones((1, 181), dtype=torch.bool),
+        scan_min_range=torch.zeros(1), scan_max_range=torch.full((1,), 12.0),
+        rel_sensor_poses=torch.zeros((1, 3)),
+        num_total_beams=torch.full((1,), 181.0))
+    return g, torch.tensor(start, dtype=torch.float32)[None], scan
+
+
+def _to(x, dev):
+    return x.to(dev) if torch.is_tensor(x) else x
+
+
+@pytest.mark.parametrize("matcher", ["branch_bound", "grid_search"])
+def test_search_matchers_on_the_card_match_the_cpu(dev, matcher):
+    """Branch-and-bound and the grid search on the card against their run
+    on the CPU on the same inputs; the cost tail launches K2 once."""
+    from my_lidar_graph_slam_tpu_torch.ops import grid as gridops
+    from my_lidar_graph_slam_tpu_torch.ops import matchers, pyramid
+
+    g, poses, scan = _search_scene()
+    common = dict(usable_range_min=0.01, usable_range_max=12.0,
+                  greedy_params=(("standard_deviation", 0.05),
+                                 ("scaling_factor", 1.0)))
+
+    def run(d):
+        gd = gridops.GridMap(*(_to(x, d) for x in g))
+        vals = gridops.values(gd)
+        args = {k: _to(v, d) for k, v in scan.items()}
+        if matcher == "branch_bound":
+            return matchers.branch_bound_match(
+                pyramid.build_pyramid(vals, 4), gd, poses.to(d), **args,
+                scan_range_max=12.0, range_theta=0.5,
+                normalized_score_threshold=0.0, node_height_max=4,
+                win_x=10, win_y=10,
+                win_theta_max=matchers.static_max_theta_window(0.05, 12.0,
+                                                               0.5),
+                **common)
+        return matchers.grid_search_match(
+            vals, gd, poses.to(d), **args, normalized_score_threshold=0.0,
+            step_x=0.05, step_y=0.05, step_t=0.01, nx=9, ny=9, nt=21,
+            **common)
+
+    ref = run(torch.device("cpu"))
+    before = greedy_cost.greedy_cost_core.launches
+    got = run(dev)
+    torch.cuda.synchronize()
+    assert greedy_cost.greedy_cost_core.launches == before + 1
+    assert bool(got.pose_found.cpu()[0]) and bool(ref.pose_found[0])
+    torch.testing.assert_close(got.estimated_pose.cpu(), ref.estimated_pose,
+                               rtol=0, atol=1e-4)
+    torch.testing.assert_close(got.normalized_score.cpu(),
+                               ref.normalized_score, rtol=1e-3, atol=1e-4)
+    torch.testing.assert_close(got.covariance.cpu(), ref.covariance,
+                               rtol=1e-2, atol=1e-6)
+    assert int(got.frontier_overflow.cpu()[0]) == \
+        int(ref.frontier_overflow[0])

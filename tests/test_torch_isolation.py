@@ -13,7 +13,8 @@ SOURCES = sorted(p for p in PKG.rglob("*.py")
                  if "build" not in p.relative_to(PKG).parts) + \
     [ROOT / "chip_smoke.py", ROOT / "tools" / "profile_torch_slice.py",
      ROOT / "tools" / "replay_detections_torch.py",
-     ROOT / "tools" / "kernel_ab.py", ROOT / "tools" / "compare_modes.py"]
+     ROOT / "tools" / "kernel_ab.py", ROOT / "tools" / "compare_modes.py",
+     ROOT / "tools" / "bb_frontier_caps.py"]
 FORBIDDEN = ("jax", "jaxlib", "my_lidar_graph_slam_tpu", "PIL", "matplotlib")
 
 
