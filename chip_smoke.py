@@ -26,7 +26,7 @@ with a CUDA card and the CUDA toolkit (``nvcc``). Phases:
    intel-like world, 2 laps at 0.08 m steps, through ``config.load``,
    ``config.create_slam``, ``carmen.load`` and ``process_scan``. The launch
    counters are zeroed just before and read just after, as in phases 6
-   and 7; each of them fails if a kernel did not launch.
+   to 10; each of them fails if a kernel did not launch.
 6. Launcher: ``launcher.run`` (the entry point of ``python -m
    my_lidar_graph_slam_tpu_torch.launcher``) on
    ``configs/launcher_settings_robust.json`` verbatim (up to 3 candidate
@@ -66,7 +66,31 @@ with a CUDA card and the CUDA toolkit (``nvcc``). Phases:
    ``host_solver_max_nodes`` = 128, so every backend pass above 128
    nodes solves on the card inside ``Backend.run_once``: at least one
    closure, a device solve, a finite ATE, K1 and K2 launched.
-5. Times (run last, on the inputs recorded by phases 4, 6, 7, 8 and 9): first
+10. The rest of the port: (a) ``launcher.run`` online (blocking
+   frontend, synchronous backend) on a copy of
+   ``configs/launcher_settings_default.json`` whose loop detector is the
+   RealTimeCorrelative one (``Backend.LoopDetectorType`` and its group;
+   every other key verbatim), on phase 4's log and ground truth: every
+   artifact, at least one closure, a finite ATE, and K2 launched on a
+   local map, recorded under the path "detection-rtc". Prints nodes,
+   edges, closures, loop edges, ATE, scans/s, median keyframe ms, median
+   and max ms per detection pass, host synchronizations per detection
+   pass (sync debug mode), escalations (and how many of them padded rows
+   alone asked for), passes still uncertified after escalation, padded
+   rows and stale coarse maps. (b) The default
+   settings over the log's first 800 scans; at each keyframe the pruned
+   frontend path (``CorrelativeMatcher(use_sweep=False)``) also matches
+   the same latest map, scan and prior, without feeding its result back;
+   its pose must sit at the sweep's lattice cell on every keyframe whose
+   best sweep score is not tied within K1's tolerance. Prints the ties,
+   the certificate hit rate, the sweep re-runs and each path's match
+   time per keyframe (from an empty queue to the pose on the host,
+   median and max); its kernel calls are
+   recorded under "frontend-pruned". (c) The native CARMEN tokenizer
+   (``io/carmen.py::load_old_laser_fast``, built with the host's C++
+   compiler) against ``carmen.load`` on phase 4's log: the same scans,
+   ranges within 1e-4 and poses within 1e-9; both parse times.
+5. Times (run last, on the inputs recorded by phases 4 and 6-10): first
    the launch floor, an empty kernel launched as the kernels are (ctypes,
    current stream), back to back and queued. Then, for every shape that
    any of those runs gave a kernel, keyed by (path, M, Q), the kernel and
@@ -335,14 +359,20 @@ class Recorder:
     """Stands in for a kernel wrapper during a run: keeps the arguments of
     the last call at each shape, keyed by (path, M, Q), and counts the
     calls at each shape. The path is "frontend" for a call on the latest
-    map and "detection" for one on a local map (the two have different
-    widths; a stacked detection map [M, H, W] has a local map's width). M
-    is the depth of a stacked map, 1 for a single map."""
+    map and ``detection_path`` ("detection" unless the run names its
+    detector) for one on a local map (the two have different widths; a
+    stacked detection map [M, H, W] has a local map's width), or
+    ``path_override`` while that is set. M is the depth of a stacked map,
+    1 for a single map. ``last_out`` is the output of the last call."""
 
-    def __init__(self, module, name, latest_width):
+    def __init__(self, module, name, latest_width,
+                 detection_path="detection"):
         self.module, self.name = module, name
         self.fn = getattr(module, name)
         self.latest_width = latest_width
+        self.detection_path = detection_path
+        self.path_override = None
+        self.last_out = None
         self.calls = {}
         self.counts = {}
         setattr(module, name, self)
@@ -358,13 +388,15 @@ class Recorder:
         self.fn.launches = value
 
     def __call__(self, *args, **kwargs):
-        path = "frontend" if args[0].shape[-1] == self.latest_width \
-            else "detection"
+        path = self.path_override or (
+            "frontend" if args[0].shape[-1] == self.latest_width
+            else self.detection_path)
         m = args[0].shape[0] if args[0].dim() == 3 else 1
         key = (path, m, args[1].shape[0])
         self.calls[key] = (args, kwargs)
         self.counts[key] = self.counts.get(key, 0) + 1
-        return self.fn(*args, **kwargs)
+        self.last_out = self.fn(*args, **kwargs)
+        return self.last_out
 
     def restore(self):
         setattr(self.module, self.name, self.fn)
@@ -412,15 +444,17 @@ def slice_slam(dev):
                               threaded_backend=False)
 
 
-def start_recording(latest_width):
+def start_recording(latest_width, detection_path="detection"):
     """Zero both launch counters and put recorders in front of both kernel
     wrappers; returns the recorders."""
     from my_lidar_graph_slam_tpu_torch.ops.cuda import correlate, greedy_cost
 
     correlate.window_scores.launches = 0
     greedy_cost.greedy_cost_core.launches = 0
-    return [Recorder(correlate, "window_scores", latest_width),
-            Recorder(greedy_cost, "greedy_cost_core", latest_width)]
+    return [Recorder(correlate, "window_scores", latest_width,
+                     detection_path),
+            Recorder(greedy_cost, "greedy_cost_core", latest_width,
+                     detection_path)]
 
 
 def stop_recording(rec, what):
@@ -849,6 +883,329 @@ def phase_solver(torch, dev, slam4, records, gt, gt_t):
 
 
 # --------------------------------------------------------------------------
+# Phase 10: the correlative loop detector, the pruned frontend, the native
+# reader
+# --------------------------------------------------------------------------
+
+
+def correlative_settings(workdir):
+    """A copy of the default settings in ``workdir`` whose only change is
+    the loop detector: ``Backend.LoopDetectorType`` RealTimeCorrelative
+    with its group; returns its path."""
+    with open(SETTINGS) as f:
+        tree = json.load(f)
+    tree["Backend"]["LoopDetectorType"] = "RealTimeCorrelative"
+    tree["Backend"]["LoopDetectorConfigGroup"] = \
+        "LoopDetectorRealTimeCorrelative"
+    path = os.path.join(workdir, "settings_correlative.json")
+    with open(path, "w") as f:
+        json.dump(tree, f, indent=4)
+    return path
+
+
+def phase_correlative(torch, dev, workdir):
+    """(a) ``launcher.run`` on the default settings with the
+    RealTimeCorrelative loop detector, online (blocking frontend,
+    synchronous backend), on the slice's log with its ground truth. Around
+    each detection pass it drains the card's queue, then times the pass
+    and counts the host synchronizations that PyTorch's sync debug mode
+    reports; K2 calls on a local map are recorded under the path
+    "detection-rtc"."""
+    import warnings
+
+    from my_lidar_graph_slam_tpu_torch import launcher
+    from my_lidar_graph_slam_tpu_torch.models import loop_closure
+    from my_lidar_graph_slam_tpu_torch.utils import config
+    from my_lidar_graph_slam_tpu_torch.utils.metrics import MetricManager
+
+    settings = correlative_settings(workdir)
+    cfg = config.load(settings)
+    latest = int(cfg.get("Tpu.LatestMapSize", 1024))
+    out = os.path.join(workdir, "correlative")
+    key_ms, pass_ms, pass_syncs = [], [], []
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+
+        def timed_scan(fn, *args, **kwargs):
+            t0 = time.perf_counter()
+            updated = fn(*args, **kwargs)
+            if updated:
+                key_ms.append(1e3 * (time.perf_counter() - t0))
+            return updated
+
+        def timed_detect(fn, *args, **kwargs):
+            # Drain the frontend's queued work first, so that the time is
+            # the pass's own (the backend's LoopDetectionTime includes it).
+            torch.cuda.synchronize()
+            n0, t0 = len(caught), time.perf_counter()
+            results = fn(*args, **kwargs)
+            pass_ms.append(1e3 * (time.perf_counter() - t0))
+            pass_syncs.append(len(caught) - n0)
+            return results
+
+        # Which rows asked for each escalation: the certificate of every
+        # refinement is kept on the card and read after the run.
+        batches = []
+
+        def note_rows(fn, n):
+            batches.append({"real": n, "exact": []})
+            return fn(n)
+
+        def keep_exact(fn, *args, **kwargs):
+            out = fn(*args, **kwargs)
+            batches[-1]["exact"].append(out[2])
+            return out
+
+        from my_lidar_graph_slam_tpu_torch.models import slam as slam_mod
+        from my_lidar_graph_slam_tpu_torch.ops import correlative_coarse
+        spies = [MethodSpy(slam_mod.LidarGraphSlam, "process_scan",
+                           timed_scan),
+                 MethodSpy(loop_closure.LoopDetectorCorrelative, "detect",
+                           timed_detect),
+                 MethodSpy(loop_closure, "_bucket_batch", note_rows),
+                 MethodSpy(correlative_coarse, "_refine", keep_exact)]
+        MetricManager.reset_instance()
+        rec = start_recording(latest, "detection-rtc")
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            probe = len(caught)
+            torch.zeros(1, device=dev).cpu()
+            sync_counting = len(caught) > probe
+            t0 = time.perf_counter()
+            run = launcher.run(os.path.join(workdir, LOG_NAME), settings,
+                               out, threaded_backend=False,
+                               gt_path=os.path.join(workdir, GT_NAME))
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+            for spy in spies:
+                spy.restore()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = stop_recording(rec, "the correlative-detector run")
+    # An escalation is asked for by padding alone when every row whose
+    # certificate failed on the refinement before it is a padded one.
+    padding_only = real_asked = 0
+    for b in batches:
+        for exact in b["exact"][:-1]:
+            failed = ~exact.cpu().numpy()
+            if failed[:b["real"]].any():
+                real_asked += 1
+            else:
+                padding_only += 1
+
+    suffixes = (".png", ".json", "-latest.png", "-latest.json",
+                ".posegraph.json", "-posegraph.png", ".ckpt.npz",
+                ".metrics.json")
+    missing = [x for x in suffixes if not os.path.exists(out + x)]
+    if missing:
+        raise AssertionError(f"correlative-run artifacts missing: {missing}")
+    metrics = json.load(open(out + ".metrics.json"))
+    counters = metrics["Counters"]
+    backend_ms = metrics["Distributions"].get("LoopDetectionTime", {})
+
+    def counter(name):
+        return counters.get(name, {}).get("value", 0)
+
+    rtc_k2 = {f"M={m} Q={q}": n for (path, m, q), n in rec[1].counts.items()
+              if path == "detection-rtc"}
+    stats = {
+        "scans": run["num_scans"], "nodes": run["num_nodes"],
+        "edges": run["num_edges"], "loop_closures": run["num_loop_closures"],
+        "loop_edges": run["num_edges"] - (run["num_nodes"] - 1),
+        "ate_aligned_m": run["ate_rmse_m"], "seconds": run["elapsed_s"],
+        "scans_per_s": run["scans_per_s"], "wall_s": wall,
+        "keyframe_ms_median": float(np.median(key_ms)),
+        "detection_passes": len(pass_ms),
+        "detection_pass_ms_median": float(np.median(pass_ms))
+        if pass_ms else None,
+        "detection_pass_ms_max": float(max(pass_ms)) if pass_ms else None,
+        "loop_detection_time_ms_mean": 1e3 * backend_ms.get("mean", 0.0),
+        "loop_detection_time_ms_max": 1e3 * backend_ms.get("max", 0.0),
+        "host_syncs_per_detection_pass": float(np.mean(pass_syncs))
+        if sync_counting and pass_syncs else None,
+        "host_syncs_per_detection_pass_max": int(max(pass_syncs))
+        if sync_counting and pass_syncs else None,
+        "escalations": counter("LoopDetectCorrelativeEscalations"),
+        "escalations_asked_by_padding_only": padding_only,
+        "escalations_asked_by_real_rows": real_asked,
+        "passes_inexact_after_escalation": counter(
+            "LoopDetectCorrelativeInexact"),
+        "padded_rows": counter("LoopDetectMxuPaddedQueries"),
+        "real_rows": counter("LoopDetectMxuQueries"),
+        "stale_coarse_maps": counter("LoopDetectStaleCoarseMaps"),
+        "k2_detection_rtc_launches": rtc_k2,
+        "launches": launches,
+    }
+    log("  " + json.dumps(stats))
+    if padding_only + real_asked != stats["escalations"]:
+        raise AssertionError("the certificates read after the run account "
+                             "for another number of escalations than the "
+                             "detector's counter")
+    if stats["loop_closures"] < 1:
+        raise AssertionError("the correlative-detector run closed no loop")
+    if not np.isfinite(stats["ate_aligned_m"]):
+        raise AssertionError("the correlative-detector run's ATE is not "
+                             "finite")
+    if not rtc_k2:
+        raise AssertionError("K2 never launched on the detection-rtc path")
+    return stats, rec
+
+
+def live_scores(torch, scores, store, scan_id, matcher, resolution):
+    """One frontend sweep's window scores (K1's output f32[1, NT, 5, 5])
+    without the thetas outside the scan's live window, flattened; the
+    live window is the sweep's own (``matchers_sweep._sweep``), computed
+    on the card as it computes it."""
+    from my_lidar_graph_slam_tpu_torch.ops import grid as gridops
+    from my_lidar_graph_slam_tpu_torch.ops import matchers
+
+    dev = scores.device
+    nb = store.beam_bucket()
+    valid = store.valid[scan_id, :nb]
+    max_range = torch.tensor(float(store.ranges[scan_id, :nb][valid].max()),
+                             dtype=torch.float32, device=dev).clamp(
+        max=matcher.scan_range_max)
+    step = matchers.search_step_theta(gridops.scalar(resolution, dev),
+                                      max_range)
+    win_t = (scores.shape[1] - 1) // 2
+    win_act = int(torch.ceil(0.5 * gridops.scalar(matcher.range_theta, dev)
+                             / step).clamp(max=win_t))
+    return scores[0, win_t - win_act:win_t + win_act + 1].reshape(-1)
+
+
+def phase_pruned(torch, dev, records):
+    """(b) The default settings over the log's first ASYNC_SCANS scans; at
+    each keyframe the pruned frontend path also matches the same latest
+    map, scan and prior, and its result is not fed back. Its pose must
+    sit at the sweep's lattice cell on every keyframe whose sweep best
+    score is not tied (the top two live window scores within K1's
+    tolerance). Its K1 and K2 calls are recorded under the path
+    "frontend-pruned"."""
+    import dataclasses
+
+    from my_lidar_graph_slam_tpu_torch.models import scan_matchers
+    from my_lidar_graph_slam_tpu_torch.utils.metrics import MetricManager
+
+    slam = slice_slam(dev)
+    sweep = slam.frontend.matcher
+    pruned = dataclasses.replace(sweep, use_sweep=False)
+    res = slam.builder.config.resolution
+    MetricManager.reset_instance()
+    rec = start_recording(slam.builder.config.latest_map_size)
+    rows = []
+
+    def both(fn, self, grid, store, scan_id, initial_pose):
+        if self is not sweep:
+            return fn(self, grid, store, scan_id, initial_pose)
+        # Each path is timed alone from an empty queue to its resolved
+        # pose on the host.
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pending = fn(self, grid, store, scan_id, initial_pose)
+        ref = self.resolve_async(pending, initial_pose)
+        sweep_ms = 1e3 * (time.perf_counter() - t0)
+        scores = live_scores(torch, rec[0].last_out, store, scan_id, sweep,
+                             res)
+        top2 = torch.topk(scores, 2).values.cpu().numpy()
+        for r in rec:
+            r.path_override = "frontend-pruned"
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got = pruned.resolve_async(
+                pruned.match_async(grid, store, scan_id, initial_pose),
+                initial_pose)
+            pruned_ms = 1e3 * (time.perf_counter() - t0)
+        finally:
+            for r in rec:
+                r.path_override = None
+        rows.append(dict(
+            sweep_ms=sweep_ms, pruned_ms=pruned_ms,
+            tied=bool(top2[0] - top2[1] <= K1_ATOL + K1_RTOL * abs(top2[0])),
+            exact=pruned.last_exact_fraction == 1.0,
+            dpose=float(np.abs(np.asarray(got.estimated_pose, np.float64) -
+                               np.asarray(ref.estimated_pose)).max())))
+        return pending
+
+    spy = MethodSpy(scan_matchers.CorrelativeMatcher, "match_async", both)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        for scan in records[:ASYNC_SCANS]:
+            slam.process_scan(scan, scan.odom_pose)
+        slam.stop_backend()
+    finally:
+        spy.restore()
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    launches = stop_recording(rec, "the pruned-frontend run")
+    counters = MetricManager.instance()
+    differ = [r for r in rows if r["dpose"] > 1e-6]
+    stats = {
+        "scans": ASYNC_SCANS, "keyframes": len(rows),
+        "ties": sum(r["tied"] for r in rows),
+        "certificate_hit_rate": float(np.mean([r["exact"] for r in rows])),
+        "sweep_reruns": counters.counters("FrontendPrunedReruns").value,
+        "pruned_matches": counters.counters("FrontendPrunedMatches").value,
+        "poses_differ": len(differ),
+        "poses_differ_untied": sum(not r["tied"] for r in differ),
+        "max_pose_diff": max((r["dpose"] for r in rows), default=0.0),
+        "sweep_match_ms_median": float(np.median(
+            [r["sweep_ms"] for r in rows])) if rows else None,
+        "pruned_match_ms_median": float(np.median(
+            [r["pruned_ms"] for r in rows])) if rows else None,
+        "sweep_match_ms_max": max((r["sweep_ms"] for r in rows),
+                                  default=None),
+        "pruned_match_ms_max": max((r["pruned_ms"] for r in rows),
+                                   default=None),
+        "seconds": elapsed, "launches": launches}
+    log("  " + json.dumps(stats))
+    if stats["poses_differ_untied"]:
+        raise AssertionError("the pruned frontend left the sweep's lattice "
+                             "cell on an untied keyframe")
+    if not rows:
+        raise AssertionError("the pruned-frontend run matched no keyframe")
+    return stats, rec
+
+
+def phase_native_reader(workdir):
+    """(c) The native tokenizer (built from the checkout's source with the
+    host's C++ compiler) against the Python reader on the slice's log:
+    the same scans, ranges within 1e-4 and poses within 1e-9
+    (tests/test_aux.py:155-169); both parse times."""
+    from my_lidar_graph_slam_tpu_torch.io import carmen
+    from my_lidar_graph_slam_tpu_torch.sensor.data import RawScan
+
+    path = os.path.join(workdir, LOG_NAME)
+    t0 = time.perf_counter()
+    carmen.tokenizer_library()
+    build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    fast = carmen.load_old_laser_fast(path)
+    fast_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    py = [r for r in carmen.load(path) if isinstance(r, RawScan)]
+    py_s = time.perf_counter() - t0
+    if len(fast) != len(py):
+        raise AssertionError(f"native reader: {len(fast)} scans against "
+                             f"{len(py)}")
+    err_r = max(float(np.abs(a.ranges - b.ranges).max())
+                for a, b in zip(py, fast))
+    err_p = max(float(np.abs(a.odom_pose - b.odom_pose).max())
+                for a, b in zip(py, fast))
+    stats = {"scans": len(fast), "native_s": fast_s, "python_s": py_s,
+             "build_s": build_s, "max_range_err": err_r,
+             "max_pose_err": err_p}
+    log("  " + json.dumps(stats))
+    if err_r > 1e-4 or err_p > 1e-9:
+        raise AssertionError("the native reader differs from the Python "
+                             "reader")
+    return stats
+
+
+# --------------------------------------------------------------------------
 # Phase 5: times
 # --------------------------------------------------------------------------
 
@@ -1115,7 +1472,8 @@ def phase_times(torch, sources, slam, errs):
     for phase, path, m, q, args, kw, launches in recorded_calls(sources, 1):
         vm, cells, mask, table, k, thr, *rest = args
         map_idx = rest[0] if rest else kw.get("map_idx")
-        gp = dict(slam.frontend.matcher.greedy_params if path == "frontend"
+        gp = dict(slam.frontend.matcher.greedy_params
+                  if path.startswith("frontend")
                   else slam.backend.detector.greedy_params)
         scaling = gp.get("scaling_factor", 0.05)
 
@@ -1194,12 +1552,12 @@ def main() -> int:
 
     smi = smi_line()
     kind = torch.cuda.get_device_name(0)
-    log(f"[1/9] device: {smi} | torch {torch.__version__} cuda "
+    log(f"[1/10] device: {smi} | torch {torch.__version__} cuda "
         f"{torch.version.cuda} | {kind}")
 
     t0 = time.perf_counter()
     loader.build_all()
-    log(f"[2/9] build: {time.perf_counter() - t0:.2f} s")
+    log(f"[2/10] build: {time.perf_counter() - t0:.2f} s")
     for name, text in loader.ptxas_report.items():
         for line in text.splitlines():
             if "registers" in line or "spill" in line:
@@ -1212,35 +1570,49 @@ def main() -> int:
         # beam capacity for NB.
         dev = torch.device("cuda")
         errs = phase_kernels(torch, dev, 1024)
-        log(f"[3/9] kernels vs plain: ok in {time.perf_counter() - t0:.1f} s")
+        log(f"[3/10] kernels vs plain: ok in {time.perf_counter() - t0:.1f} s")
 
         t0 = time.perf_counter()
         stats, rec, slam, records, truth = phase_slice(torch, dev, workdir)
-        log(f"[4/9] slice: ok in {time.perf_counter() - t0:.1f} s")
+        log(f"[4/10] slice: ok in {time.perf_counter() - t0:.1f} s")
 
         t0 = time.perf_counter()
         launcher_stats, rec6 = phase_launcher(torch, workdir)
-        log(f"[6/9] launcher, robust settings, replay: ok in "
+        log(f"[6/10] launcher, robust settings, replay: ok in "
             f"{time.perf_counter() - t0:.1f} s")
 
         t0 = time.perf_counter()
         async_stats, rec7 = phase_async(torch, dev, records)
-        log(f"[7/9] async against blocking: ok in "
+        log(f"[7/10] async against blocking: ok in "
             f"{time.perf_counter() - t0:.1f} s")
 
         t0 = time.perf_counter()
         bb_stats, rec8 = phase_bb_frontend(torch, dev, workdir)
-        log(f"[8/9] bb_frontend settings, online: ok in "
+        log(f"[8/10] bb_frontend settings, online: ok in "
+            f"{time.perf_counter() - t0:.1f} s")
+
+        t0 = time.perf_counter()
+        solver_stats, rec9 = phase_solver(torch, dev, slam, records, *truth)
+        log(f"[9/10] device pose-graph solver: ok in "
+            f"{time.perf_counter() - t0:.1f} s")
+
+        t0 = time.perf_counter()
+        rtc_stats, rec10 = phase_correlative(torch, dev, workdir)
+        log(f"[10a/10] correlative loop detector, launcher: ok in "
+            f"{time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        pruned_stats, rec10b = phase_pruned(torch, dev, records)
+        log(f"[10b/10] pruned frontend against the sweep: ok in "
+            f"{time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        reader_stats = phase_native_reader(workdir)
+        log(f"[10c/10] native CARMEN reader: ok in "
             f"{time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
-    solver_stats, rec9 = phase_solver(torch, dev, slam, records, *truth)
-    log(f"[9/9] device pose-graph solver: ok in "
-        f"{time.perf_counter() - t0:.1f} s")
-
-    t0 = time.perf_counter()
     sources = [("slice", rec), ("launcher", rec6), ("async", rec7),
-               ("bb_frontend", rec8), ("device_solver", rec9)]
+               ("bb_frontend", rec8), ("device_solver", rec9),
+               ("correlative", rec10), ("pruned", rec10b)]
     rows = phase_times(torch, sources, slam, errs)
     for r in rows:
         lib = "n/a" if r["library_ms"] is None else \
@@ -1256,11 +1628,13 @@ def main() -> int:
             f"{r['launches']} launches {json.dumps(r['launches_by_phase'])}"
             f", inputs of the {r['phase']} run, max|err| vs plain "
             f"{r['max_abs_err']:.3g} {json.dumps(r['shape'])}")
-    log(f"[5/9] times: ok in {time.perf_counter() - t0:.1f} s")
+    log(f"[5/10] times: ok in {time.perf_counter() - t0:.1f} s")
 
     print(json.dumps({"kernels": rows, "slice": stats,
                       "launcher": launcher_stats, "async": async_stats,
-                      "bb_frontend": bb_stats, "solver": solver_stats}))
+                      "bb_frontend": bb_stats, "solver": solver_stats,
+                      "correlative": rtc_stats, "pruned": pruned_stats,
+                      "native_reader": reader_stats}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

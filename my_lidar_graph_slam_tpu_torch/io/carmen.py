@@ -7,13 +7,25 @@ including the old-format angle-geometry guessing by beam count
 (carmen_reader.cpp:463-503) and the relative sensor pose computed as
 ``InverseCompound(robotPose, laserPose)`` (carmen_reader.cpp:313).
 
-Counterpart of ``my_lidar_graph_slam_tpu/io/carmen.py``: the pure-Python
-reader only (the native tokenizer is not ported yet).
+Counterpart of ``my_lidar_graph_slam_tpu/io/carmen.py``: :func:`load`,
+the pure-Python reader and the semantics oracle, and
+:func:`load_old_laser_fast`, the old-format laser records through the C++
+tokenizer ``csrc/carmen_tokenizer.cpp``. The tokenizer is compiled with the
+host's C++ compiler at first use into ``my_lidar_graph_slam_tpu_torch/
+build/`` (ignored by git), named by a hash of its source so that an
+edited source is rebuilt and an unchanged one reused; a failed build
+raises.
 """
 
 from __future__ import annotations
 
+import ctypes
+import hashlib
 import math
+import os
+import shutil
+import subprocess
+import threading
 from typing import Dict, List, Union
 
 import numpy as np
@@ -228,3 +240,108 @@ def _parse_old_other_laser(tag: str, tok: List[str],
         min_range=min_range, max_range=max_range,
         min_angle=min_angle, max_angle=max_angle,
         angles=angles, ranges=ranges)
+
+
+# ---------------------------------------------------------------------------
+# Native fast path (C++ tokenizer, ctypes binding)
+# ---------------------------------------------------------------------------
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+TOKENIZER_SOURCE = os.path.join(_PKG, "csrc", "carmen_tokenizer.cpp")
+BUILD = os.path.join(_PKG, "build")
+CXX_FLAGS = ["-O2", "-std=c++17", "-shared", "-fPIC"]
+
+_lock = threading.Lock()
+_lib = None
+
+
+def _compiler() -> str:
+    path = shutil.which("c++") or shutil.which("g++")
+    if path is None:
+        raise RuntimeError("no C++ compiler (c++ or g++) to build the CARMEN "
+                           "tokenizer")
+    return path
+
+
+def tokenizer_library() -> ctypes.CDLL:
+    """The loaded tokenizer library, built if needed; raises if the build
+    fails."""
+    global _lib
+    with _lock:
+        if _lib is not None:
+            return _lib
+        with open(TOKENIZER_SOURCE, "rb") as f:
+            digest = hashlib.sha1(f.read()).hexdigest()[:12]
+        target = os.path.join(BUILD, f"libcarmen_tokenizer-{digest}.so")
+        if not os.path.exists(target):
+            os.makedirs(BUILD, exist_ok=True)
+            tmp = f"{target}.{os.getpid()}.tmp"
+            out = subprocess.run(
+                [_compiler(), *CXX_FLAGS, "-o", tmp, TOKENIZER_SOURCE],
+                capture_output=True, text=True)
+            if out.returncode != 0:
+                raise RuntimeError("building the CARMEN tokenizer failed:\n"
+                                   + out.stdout + out.stderr)
+            os.replace(tmp, target)
+        lib = ctypes.CDLL(target)
+        lib.carmen_scan_count.restype = ctypes.c_int
+        lib.carmen_scan_count.argtypes = [ctypes.c_char_p, ctypes.c_char_p]
+        lib.carmen_parse_old_laser.restype = ctypes.c_int
+        lib.carmen_parse_old_laser.argtypes = [
+            ctypes.c_char_p, ctypes.c_char_p, ctypes.c_int, ctypes.c_int,
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_void_p, ctypes.c_void_p]
+        _lib = lib
+        return lib
+
+
+def load_old_laser_fast(path: str, tag: str = "FLASER",
+                        max_beams: int = 4096) -> List[RawScan]:
+    """All old-format laser records of one tag, parsed by the C++
+    tokenizer (``load_old_laser_fast`` of the JAX package): ranges, poses
+    and timestamps from the tokenizer, the laser geometry from the PARAMs
+    read here, as :func:`load`'s FLASER path does (carmen_reader.cpp:
+    319-394). Raises ``OSError`` when the file cannot be read."""
+    lib = tokenizer_library()
+    n = lib.carmen_scan_count(path.encode(), tag.encode())
+    if n < 0:
+        raise OSError(f"cannot read {path}")
+    if n == 0:
+        return []
+    ranges = np.zeros((n, max_beams), np.float32)
+    laser_poses = np.zeros((n, 3), np.float64)
+    robot_poses = np.zeros((n, 3), np.float64)
+    timestamps = np.zeros((n,), np.float64)
+    beam_counts = np.zeros((n,), np.int32)
+    got = lib.carmen_parse_old_laser(
+        path.encode(), tag.encode(), max_beams, n, ranges.ctypes.data,
+        laser_poses.ctypes.data, robot_poses.ctypes.data,
+        timestamps.ctypes.data, beam_counts.ctypes.data)
+    if got < 0:
+        raise OSError(f"cannot read {path}")
+
+    params: Dict[str, str] = {}
+    with open(path, "r") as f:
+        for line in f:
+            if not line.startswith("PARAM"):
+                continue
+            tok = line.split()
+            if len(tok) >= 3:
+                params[tok[1]] = tok[2]
+
+    scans = []
+    for i in range(got):
+        num = int(beam_counts[i])
+        nkeep = min(num, max_beams)
+        min_range, max_range, incr, min_angle, max_angle = _laser_params(
+            params, num)
+        scans.append(RawScan(
+            sensor_id=tag, timestamp=float(timestamps[i]),
+            odom_pose=robot_poses[i].copy(), velocity=np.zeros(3),
+            rel_sensor_pose=_inverse_compound(robot_poses[i],
+                                              laser_poses[i]),
+            min_range=min_range, max_range=max_range,
+            min_angle=min_angle, max_angle=max_angle,
+            angles=min_angle + incr * np.arange(nkeep),
+            ranges=ranges[i, :nkeep].astype(np.float64)))
+    return scans

@@ -1,7 +1,7 @@
 """Loop-closure candidate search and detection.
 
 Counterpart of ``my_lidar_graph_slam_tpu/models/loop_closure.py:33-214,
-228-283,362-533,687-766``.
+228-283,362-533,608-766``.
 
 Search: nearest-node candidate search over the host pose graph
 (LoopSearcherNearest, loop_searcher_nearest.cpp:13-108) as one masked
@@ -17,9 +17,11 @@ does on an accelerator (``_detect_mxu_single``), and emits loop edges
 window exactly. Several candidates per pass run as ONE folded sweep over
 their stacked maps (``_detect_mxu`` of the JAX package).
 :class:`LoopDetectorGridSearch` runs the exhaustive lattice search of
-``ops/matchers.py`` for all nodes of a candidate at once. The
-branch-and-bound pyramid path, the correlative detector and the mesh
-fan-out are not ported yet.
+``ops/matchers.py`` for all nodes of a candidate at once.
+:class:`LoopDetectorCorrelative` runs the two-stage coarse-to-fine search
+of ``ops/correlative_coarse.py``, one batch per candidate map. The JAX
+package's mesh fan-out of the BranchBound detector belongs to the
+parallel layer (ROADMAP Queue 1 item 7).
 """
 
 from __future__ import annotations
@@ -32,6 +34,7 @@ import torch
 
 from my_lidar_graph_slam_tpu_torch.models import map_builder as mb
 from my_lidar_graph_slam_tpu_torch.models.pose_graph import PoseGraph
+from my_lidar_graph_slam_tpu_torch.ops import correlative_coarse
 from my_lidar_graph_slam_tpu_torch.ops import matchers, matchers_sweep
 from my_lidar_graph_slam_tpu_torch.utils import se2
 from my_lidar_graph_slam_tpu_torch.utils.metrics import MetricManager
@@ -356,6 +359,79 @@ def _count_queries(real: int, total: int):
     metrics = MetricManager.instance()
     metrics.counters("LoopDetectMxuQueries").increment(real)
     metrics.counters("LoopDetectMxuPaddedQueries").increment(total - real)
+
+
+def _bucket_batch(n: int) -> int:
+    """The JAX package's power-of-two batch bucket (``_bucket_batch``,
+    loop_closure.py:209-214)."""
+    k = 1
+    while k < n:
+        k *= 2
+    return k
+
+
+@dataclasses.dataclass
+class LoopDetectorCorrelative:
+    """Correlative detection (loop_detector_real_time_correlative.cpp:
+    26-128; ``LoopDetectorCorrelative`` of the JAX package): the two-stage
+    search of ``ops/correlative_coarse.py`` prunes on the candidate map's
+    windowed-max coarse map and refines the best blocks on the fine map.
+
+    One batch per candidate map. As in the JAX package the nodes are
+    padded to a power of two with scan 0 at a zero pose; the padded rows
+    take part in the escalation test and are never emitted (counted as
+    ``LoopDetectMxuPaddedQueries``). ``last_exact`` is the certificate of
+    the last candidate's real rows. Counters:
+    ``LoopDetectCorrelativeEscalations``, the refinements after the first;
+    ``LoopDetectCorrelativeInexact``, the candidates whose real rows are
+    still uncertified after the last escalation.
+    """
+
+    score_threshold: float = 0.6
+    low_resolution: int = 5
+    range_x: float = 5.0
+    range_y: float = 5.0
+    range_theta: float = 1.0
+    scan_range_max: float = 20.0
+    usable_range_min: float = 0.01
+    usable_range_max: float = 20.0
+    refine_blocks: int = 512
+    greedy_params: tuple = ()
+    last_exact: bool = True
+
+    def detect(self, graph: PoseGraph, builder: mb.GridMapBuilder,
+               candidates: List[LoopCandidate]) -> List[LoopDetectionResult]:
+        metrics = MetricManager.instance()
+        results: List[LoopDetectionResult] = []
+        for cand in candidates:
+            lm = builder.local_maps[cand.local_map_idx]
+            coarse = correlative_coarse.coarse_map_for(builder, lm,
+                                                       self.low_resolution)
+            nodes = list(cand.node_indices)
+            k = _bucket_batch(len(nodes))
+            ids = np.asarray([int(graph.scan_ids[n]) for n in nodes])
+            idsp = np.concatenate([ids, np.zeros(k - len(nodes), ids.dtype)])
+            poses = np.zeros((k, 3), np.float32)
+            poses[:len(nodes)] = graph.poses[nodes]
+            _count_queries(len(nodes), k)
+            out = correlative_coarse.two_stage_match_batch(
+                coarse, builder.values_for(lm), lm.grid, poses,
+                low_resolution=self.low_resolution, range_x=self.range_x,
+                range_y=self.range_y, range_theta=self.range_theta,
+                scan_range_max=self.scan_range_max,
+                usable_range_min=self.usable_range_min,
+                usable_range_max=self.usable_range_max,
+                score_threshold=self.score_threshold,
+                refine_blocks=self.refine_blocks,
+                greedy_params=self.greedy_params, scan_store=builder.scans,
+                scan_ids=idsp)
+            self.last_exact = bool(out.exact[:len(nodes)].all())
+            metrics.counters("LoopDetectCorrelativeEscalations").increment(
+                out.escalations)
+            if not self.last_exact:
+                metrics.counters("LoopDetectCorrelativeInexact").increment()
+            _emit(results, graph, cand, out.packed)
+        return results
 
 
 @dataclasses.dataclass

@@ -11,8 +11,9 @@ rebuilt, all of them in stacked batches (grid_map_builder.cpp:62-80,
 Scan arrays for all pose-graph nodes live on the host in a
 :class:`ScanStore`; each device step uploads the rows it needs. Replay
 mode integrates a chunk of nodes at once (:meth:`GridMapBuilder.
-append_scans_chunk`). The branch-and-bound pyramid cache and the TPU tile
-caches have no counterpart here.
+append_scans_chunk`). Each local map caches its occupancy values and the
+correlative loop detector's windowed-max coarse map; the branch-and-bound
+pyramid cache and the TPU tile caches have no counterpart here.
 """
 
 from __future__ import annotations
@@ -117,6 +118,12 @@ class LocalMap:
     node_idx_max: int
     finished: bool = False
     values: Optional[torch.Tensor] = None   # cached occupancy values
+    # Bumped whenever ``grid`` changes; the coarse map records the
+    # version it was built from.
+    grid_version: int = 0
+    # The correlative detector's coarse map: (low_resolution, f32[H, W],
+    # grid_version at build time), see ops/correlative_coarse.py.
+    coarse: Optional[tuple] = None
     # Node poses the current grid contents were integrated at; lets
     # after_loop_closure skip maps whose optimized poses barely moved.
     built_poses: Optional[np.ndarray] = None
@@ -144,13 +151,20 @@ class GridMapBuilder:
 
     Maps live on ``device`` (``None`` means ``cuda``, and raises without a
     card); the scan store and the pose graph stay on the host.
+
+    ``refresh_coarse_maps``: the JAX package keeps a local map's coarse
+    map (``coarse_map_for``) when the map is rebuilt, so after a loop
+    closure the correlative detector prunes with the old map's bounds
+    (ROADMAP Queue 3). False, the default, keeps that behavior; True drops
+    the coarse map whenever the grid changes.
     """
 
     def __init__(self, config: MapBuilderConfig, scan_store: ScanStore,
-                 device=None):
+                 device=None, refresh_coarse_maps: bool = False):
         self.config = config
         self.scans = scan_store
         self.device = device_mod.resolve(device)
+        self.refresh_coarse_maps = refresh_coarse_maps
         self.local_maps: List[LocalMap] = []
         self.latest_map: Optional[gridops.GridMap] = None
         self.latest_scan_idx_min = 0
@@ -161,6 +175,14 @@ class GridMapBuilder:
 
     def _dev(self, arr) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(arr)).to(self.device)
+
+    def _grid_changed(self, lm: LocalMap):
+        """Drop what was derived from ``lm.grid``: the occupancy values, and
+        with ``refresh_coarse_maps`` the coarse map."""
+        lm.values = None
+        lm.grid_version += 1
+        if self.refresh_coarse_maps:
+            lm.coarse = None
 
     def _steps(self, ids) -> int:
         """Ray-step bucket covering the reach of scans ``ids``."""
@@ -226,7 +248,7 @@ class GridMapBuilder:
             min(cfg.usable_range_max, float(st.max_range[scan_id])),
             prob_hit=cfg.prob_hit, prob_miss=cfg.prob_miss, max_steps=steps)
         lm.node_idx_max = node_idx
-        lm.values = None
+        self._grid_changed(lm)
         row = np.asarray(robot_pose, np.float64)[None, :]
         lm.built_poses = row if lm.built_poses is None else \
             np.concatenate([lm.built_poses, row])
@@ -337,7 +359,7 @@ class GridMapBuilder:
             row = np.asarray(graph.poses[node_idx], np.float64)[None, :]
             lm.built_poses = row if lm.built_poses is None else \
                 np.concatenate([lm.built_poses, row])
-            lm.values = None
+            self._grid_changed(lm)
         for lm, nodes in groups:
             lm.grid = self._construct_from_nodes(lm.grid, graph, nodes[0],
                                                  nodes[-1])
@@ -454,7 +476,7 @@ class GridMapBuilder:
             lm.grid = gridops.GridMap(log_odds[i], observed[i],
                                       self._dev(origins[i]), cfg.resolution)
             lm.origin = origins[i].copy()
-            lm.values = None
+            self._grid_changed(lm)
             lm.built_poses = np.asarray(
                 graph.poses[lm.node_idx_min:lm.node_idx_max + 1],
                 np.float64).copy()

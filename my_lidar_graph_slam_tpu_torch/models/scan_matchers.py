@@ -1,14 +1,14 @@
 """Frontend scan-matcher strategy wrappers.
 
 Counterpart of ``my_lidar_graph_slam_tpu/models/scan_matchers.py:34-62,
-147-582``: :class:`CorrelativeMatcher` (ScanMatcherRealTimeCorrelative
+104-582``: :class:`CorrelativeMatcher` (ScanMatcherRealTimeCorrelative
 config, launcher_settings_default.json:42-50) on the exhaustive sweep path
-(``ops/matchers_sweep.py``), and the BranchBound, GridSearch, HillClimbing
-and LinearSolver strategies over ``ops/matchers.py``. Every strategy
-matches through one pair of calls: ``match_async`` launches the match and
-starts ONE host copy of a packed [1, 16] result without waiting, and
+(``ops/matchers_sweep.py``) or the pruned bound-and-refine path
+(``ops/matchers.py``), and the BranchBound, GridSearch, HillClimbing and
+LinearSolver strategies over ``ops/matchers.py``. Every strategy matches
+through one pair of calls: ``match_async`` launches the match and starts
+ONE host copy of a packed [1, 16] result without waiting, and
 ``resolve_async`` waits for it; the blocking frontend resolves at once.
-The pruned gather path of the correlative matcher is not ported yet.
 
 Default greedy-endpoint parameters replicate the launcher's *effective*
 configuration, including the swapped (scale, sigma) constructor arguments
@@ -24,7 +24,7 @@ scores are sums of non-negative occupancies, so the equivalent is threshold
 from __future__ import annotations
 
 import dataclasses
-from typing import NamedTuple, Optional
+from typing import Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -58,11 +58,14 @@ def unpack_summary(packed: np.ndarray, initial_poses) -> matchers.MatchSummary:
 
 class PendingMatch(NamedTuple):
     """A match started by ``match_async``: its packed [1, 16] result in a
-    host buffer that belongs to this match alone, and the CUDA event after
-    the copy into it (``None`` on the CPU, where the copy is done)."""
+    host buffer that belongs to this match alone, the CUDA event after
+    the copy into it (``None`` on the CPU, where the copy is done), and,
+    for the pruned correlative path, the call that re-runs the match
+    through the sweep when its certificate fails."""
 
     host: torch.Tensor
     event: Optional[object]
+    retry: Optional[Callable[[], torch.Tensor]] = None
 
 
 def scan_tensors(store, scan_ids, device) -> dict:
@@ -126,11 +129,29 @@ def _poses(poses, device) -> torch.Tensor:
     return torch.as_tensor(np.asarray(poses, np.float32), device=device)
 
 
+# The pruned path's expansion budgets: those of the JAX package's
+# single-query ``CorrelativeMatcher.match`` (scan_matchers.py:346).
+PRUNED_TOP_GROUPS = 14
+PRUNED_TOP_THETAS = 48
+
+
 @dataclasses.dataclass
 class CorrelativeMatcher(AsyncMatcher):
-    """ScanMatcherRealTimeCorrelative config: every (theta, dx, dy)
-    candidate of the window is scored (``low_resolution`` is kept for
-    config parity only)."""
+    """ScanMatcherRealTimeCorrelative config.
+
+    ``use_sweep`` (the default) scores every (theta, dx, dy) candidate of
+    the window with the exhaustive sweep, exact by construction. False
+    takes the JAX package's ``use_mxu=False`` path: the pruned
+    bound-and-refine search (``ops/matchers.py``) with its bound stack,
+    whose packed result carries the exactness certificate in column 15;
+    :meth:`resolve_async` re-runs a match whose certificate fails through
+    the sweep (one more host read), so the result equals the sweep's
+    always. ``last_exact_fraction`` is the certificate of the last
+    resolved match. Each match adds one to ``FrontendMxuMatches`` (sweep)
+    or ``FrontendPrunedMatches`` (pruned), and each re-run to
+    ``FrontendPrunedReruns``. ``low_resolution`` is kept for config parity
+    only.
+    """
 
     low_resolution: int = 5
     range_x: float = 0.2
@@ -141,6 +162,8 @@ class CorrelativeMatcher(AsyncMatcher):
     usable_range_max: float = 20.0
     cost_type: str = "greedy_endpoint"
     greedy_params: tuple = DEFAULT_GREEDY_PARAMS
+    use_sweep: bool = True
+    last_exact_fraction: float = 1.0
 
     def _window(self, res: float):
         win_x = int(np.ceil(0.5 * self.range_x / res))
@@ -149,22 +172,78 @@ class CorrelativeMatcher(AsyncMatcher):
             res, self.scan_range_max, self.range_theta)
         return win_x, win_y, win_t
 
-    def _match_packed(self, grid: gridops.GridMap, store, scan_ids,
+    def _match_args(self, grid: gridops.GridMap, store, scan_ids, poses):
+        scans = scan_tensors(store, scan_ids, grid.device)
+        return (_poses(poses, grid.device), scans["ranges"], scans["angles"],
+                scans["valid"], scans["scan_min_range"],
+                scans["scan_max_range"], scans["rel_sensor_poses"],
+                self.scan_range_max, self.range_theta, self.usable_range_min,
+                self.usable_range_max, 0.0, scans["num_total_beams"])
+
+    def _sweep_packed(self, grid: gridops.GridMap, store, scan_ids,
                       poses: np.ndarray) -> torch.Tensor:
         win_x, win_y, win_t = self._window(grid.resolution)
-        scans = scan_tensors(store, scan_ids, grid.device)
         summary = matchers_sweep.correlative_match_sweep(
-            gridops.values(grid), grid, _poses(poses, grid.device),
-            scans["ranges"], scans["angles"], scans["valid"],
-            scans["scan_min_range"], scans["scan_max_range"],
-            scans["rel_sensor_poses"], self.scan_range_max, self.range_theta,
-            self.usable_range_min, self.usable_range_max, 0.0,
-            scans["num_total_beams"], win_x=win_x, win_y=win_y,
-            win_theta_max=win_t, cost_type=self.cost_type,
+            gridops.values(grid), grid,
+            *self._match_args(grid, store, scan_ids, poses), win_x=win_x,
+            win_y=win_y, win_theta_max=win_t, cost_type=self.cost_type,
             greedy_params=self.greedy_params, score_gate="correlative")
         MetricManager.instance().counters("FrontendMxuMatches").increment(
             len(scan_ids))
         return matchers_sweep.pack_summary(summary)
+
+    def _pruned_packed(self, grid: gridops.GridMap, store, scan_ids,
+                       poses: np.ndarray) -> torch.Tensor:
+        """The pruned match, packed with the certificate in column 15
+        (``_fused_pruned_match`` of the JAX package)."""
+        win_x, win_y, win_t = self._window(grid.resolution)
+        vals = gridops.values(grid)
+        summary, exact = matchers.correlative_match_pruned_batch(
+            vals, matchers.make_bound_stack(vals, win_x, win_y), grid,
+            *self._match_args(grid, store, scan_ids, poses), win_x=win_x,
+            win_y=win_y, win_theta_max=win_t, top_groups=PRUNED_TOP_GROUPS,
+            top_thetas=PRUNED_TOP_THETAS, cost_type=self.cost_type,
+            greedy_params=self.greedy_params)
+        MetricManager.instance().counters("FrontendPrunedMatches").increment(
+            len(scan_ids))
+        packed = matchers_sweep.pack_summary(summary)
+        packed[:, 15] = exact.to(torch.float32)
+        return packed
+
+    def _match_packed(self, grid: gridops.GridMap, store, scan_ids,
+                      poses: np.ndarray) -> torch.Tensor:
+        if self.use_sweep:
+            return self._sweep_packed(grid, store, scan_ids, poses)
+        return self._pruned_packed(grid, store, scan_ids, poses)
+
+    def match_async(self, grid: gridops.GridMap, store, scan_id: int,
+                    initial_pose) -> PendingMatch:
+        pending = super().match_async(grid, store, scan_id, initial_pose)
+        if self.use_sweep:
+            return pending
+        poses = np.asarray(initial_pose, np.float32)[None, :]
+        return pending._replace(retry=lambda: self._sweep_packed(
+            grid, store, [scan_id], poses))
+
+    def resolve_async(self, pending: PendingMatch,
+                      initial_pose) -> matchers.MatchSummary:
+        if pending.retry is None:
+            return super().resolve_async(pending, initial_pose)
+        if pending.event is not None:
+            pending.event.synchronize()
+        packed = pending.host.numpy()
+        exact = bool(packed[0, 15] > 0.5)
+        self.last_exact_fraction = 1.0 if exact else 0.0
+        if exact:
+            packed = packed.copy()
+            packed[:, 15] = 0.0         # the sweep's frontier overflow
+        else:
+            MetricManager.instance().counters(
+                "FrontendPrunedReruns").increment()
+            packed = pending.retry().cpu().numpy()
+        out = unpack_summary(packed,
+                             np.asarray(initial_pose, np.float32)[None, :])
+        return matchers.MatchSummary(*(leaf[0] for leaf in out))
 
 
 @dataclasses.dataclass

@@ -1,10 +1,10 @@
 """Occupancy grid map as a fixed-size dense log-odds tensor.
 
-Counterpart of ``my_lidar_graph_slam_tpu/ops/grid.py`` (binary-Bayes maps
-only; the counting-cell maps are not ported yet). The map is a dense
-``f32[H, W]`` log-odds field plus an ``observed`` mask and a world-frame
-origin, replacing the reference's patch-paged ``GridMap``
-(grid_map.hpp:22-1019). Out-of-bounds reads return the Unknown sentinel 0,
+Counterpart of ``my_lidar_graph_slam_tpu/ops/grid.py``. The binary-Bayes
+map is a dense ``f32[H, W]`` log-odds field plus an ``observed`` mask and
+a world-frame origin, replacing the reference's patch-paged ``GridMap``
+(grid_map.hpp:22-1019); :class:`CountingGridMap` is the hit/miss-ratio
+cell policy beside it. Out-of-bounds reads return the Unknown sentinel 0,
 like unallocated patches (grid_map_patch.hpp:181).
 
 Cell indexing is ``[iy, ix]`` (row = y), with ``origin`` at the bottom-left
@@ -109,9 +109,63 @@ def scalar(value: float, device) -> torch.Tensor:
     return torch.full((), value, dtype=torch.float32, device=device)
 
 
+def cell_to_world(grid, ix, iy):
+    """Cell index -> world coords of the cell's bottom-left corner."""
+    res = scalar(grid.resolution, grid.origin.device)
+    return grid.origin[0] + res * ix, grid.origin[1] + res * iy
+
+
 def in_bounds(grid: GridMap, ix, iy):
     h, w = grid.shape
     return (ix >= 0) & (ix < w) & (iy >= 0) & (iy < h)
+
+
+class CountingGridMap(NamedTuple):
+    """Hit/miss-ratio occupancy submap, the CountingGridCell policy
+    (counting_grid_cell.hpp:15-85): value = hits / (hits + misses), Unknown
+    until first observation. A complete alternative to the binary-Bayes
+    :class:`GridMap` that the launcher does not instantiate, as in the
+    reference.
+
+    ``hits``, ``counts``: f32[H, W] hit and total observations per cell;
+    ``origin`` f32[2] on the map's device; ``resolution`` in meters.
+    """
+
+    hits: torch.Tensor
+    counts: torch.Tensor
+    origin: torch.Tensor
+    resolution: float
+
+    @property
+    def shape(self):
+        return tuple(self.hits.shape)
+
+    @property
+    def device(self) -> torch.device:
+        return self.hits.device
+
+
+def counting_empty(height: int, width: int, resolution: float, center=None,
+                   device=None) -> CountingGridMap:
+    """An empty counting map centered on ``center``, on ``device``
+    (``None`` means ``cuda``)."""
+    device = device_mod.resolve(device)
+    if center is None:
+        center = np.zeros((2,), np.float32)
+    origin = origin_for(center, height, width, resolution)
+    zeros = torch.zeros((height, width), dtype=torch.float32, device=device)
+    return CountingGridMap(
+        hits=zeros, counts=zeros.clone(),
+        origin=torch.as_tensor(origin, dtype=torch.float32, device=device),
+        resolution=float(resolution))
+
+
+def counting_values(grid: CountingGridMap) -> torch.Tensor:
+    """Occupancy = hits / observations; Unknown=0 where never observed
+    (counting_grid_cell.hpp:60-77)."""
+    return torch.where(grid.counts > 0,
+                       grid.hits / torch.clamp(grid.counts, min=1.0),
+                       torch.zeros_like(grid.hits))
 
 
 def lookup(value_map: torch.Tensor, ix: torch.Tensor, iy: torch.Tensor,

@@ -1,11 +1,13 @@
-"""Scan matchers: the result type, shared helpers and four strategies.
+"""Scan matchers: the result type, shared helpers and five strategies.
 
-Counterpart of ``my_lidar_graph_slam_tpu/ops/matchers.py:51-118,625-1165``
+Counterpart of ``my_lidar_graph_slam_tpu/ops/matchers.py:51-118,357-1165``
 (``MatchSummary``, ``search_step_theta``, ``static_max_theta_window``,
-``_range_gate``, ``_cost_and_covariance`` and the grid-search,
-branch-and-bound, hill-climbing and linear-solver matchers). The
-correlative matcher lives in ``matchers_sweep.py``; the pruned and brute
-correlative batches are not ported yet.
+``_range_gate``, ``_cost_and_covariance``, the pruned correlative batch
+with its bound stack, and the grid-search, branch-and-bound,
+hill-climbing and linear-solver matchers). The exhaustive correlative
+sweep lives in ``matchers_sweep.py``; it is the JAX package's brute
+``correlative_match_batch`` (the same full-window first maximum), so
+that function has no second copy here.
 
 Every matcher here takes a leading query axis Q, so one function serves
 both the JAX package's single and ``_batch`` forms; per-query scalars
@@ -36,6 +38,8 @@ from my_lidar_graph_slam_tpu_torch.utils import se2
 # Most (query, candidate, beam) reads the grid search holds at once: the
 # lattice is scored in chunks of whole dy rows under this size.
 GRID_CHUNK_ELEMS = 1 << 24
+# Theta halos of the pruned matcher's bound stack (make_bound_stack).
+BOUND_HALOS = (0, 1, 2, 3, 4, 5)
 
 
 class MatchSummary(NamedTuple):
@@ -84,6 +88,41 @@ def range_gate(valid, ranges, usable_range_min, usable_range_max,
     return valid & (ranges > min_r) & (ranges < max_r)
 
 
+def top_k(x: torch.Tensor, k: int):
+    """``(values, indices)`` of the ``k`` largest entries along the last
+    axis, largest first and equal values in ascending index order: the
+    order of XLA's ``lax.top_k``, which ``torch.topk`` does not promise
+    for ties. A stable descending sort gives it."""
+    values, indices = torch.sort(x, dim=-1, descending=True, stable=True)
+    return values[..., :k], indices[..., :k]
+
+
+def hit_cells_lattice(origins, resolution: float, sensor_poses, ranges,
+                      angles, step_t, t_idx):
+    """int32 (ix, iy) [Q, T, NB] beam endpoints at the theta lattice
+    indices ``t_idx`` (i64 [T], shared, or [Q, T], per query), i.e. at
+    ``theta_0 + t * step_t``, on grids of cell size ``resolution`` with
+    origin ``origins`` f32[Q, 2] (or one origin f32[1, 2]). Rotation by
+    angle addition, as ``matchers_mxu.py:229-243`` and the pruned matcher
+    (``matchers.py:477-490``) of the JAX package."""
+    dev = ranges.device
+    t_idx = t_idx if t_idx.dim() == 2 else t_idx[None, :]
+    st = sensor_poses[:, 2]
+    c0 = torch.cos(st[:, None] + angles)                         # [Q, NB]
+    s0 = torch.sin(st[:, None] + angles)
+    dt = t_idx.to(torch.float32) * step_t[:, None]               # [Q, T]
+    ct = torch.cos(dt)[:, :, None]
+    st2 = torch.sin(dt)[:, :, None]
+    cos_phi = c0[:, None, :] * ct - s0[:, None, :] * st2
+    sin_phi = s0[:, None, :] * ct + c0[:, None, :] * st2
+    hx = sensor_poses[:, 0, None, None] + ranges[:, None, :] * cos_phi
+    hy = sensor_poses[:, 1, None, None] + ranges[:, None, :] * sin_phi
+    res = gridops.scalar(resolution, dev)
+    ix = torch.floor((hx - origins[:, 0, None, None]) / res).to(torch.int32)
+    iy = torch.floor((hy - origins[:, 1, None, None]) / res).to(torch.int32)
+    return ix, iy
+
+
 def _cost_and_covariance(cost_type, value_map, grid: gridops.GridMap,
                          best_sensor_poses, ranges, angles, cost_mask,
                          greedy_params):
@@ -114,6 +153,191 @@ def _summary(found, cost, score, n_total, initial_poses, best_sensor_poses,
         estimated_pose=se2.move_backward(best_sensor_poses, rel_sensor_poses),
         covariance=cov,
         frontier_overflow=overflow)
+
+
+# ---------------------------------------------------------------------------
+# Pruned correlative matcher (bound and refine)
+# ---------------------------------------------------------------------------
+
+
+def _take2d(flat, pad: int, wp: int, hp: int, iy, ix, level_offset=0):
+    """Read cells of a zero-padded map (or stack of maps) flattened to
+    ``flat`` by RAW map indices: indices outside the padded frame clamp
+    into the zero ring and read 0, the Unknown sentinel
+    (``matchers.py:357-367`` of the JAX package)."""
+    y = (iy + pad).clamp(0, hp - 1).long()
+    x = (ix + pad).clamp(0, wp - 1).long()
+    return flat[level_offset + y * wp + x]
+
+
+def _centered_max(value_map, radius: int):
+    """Max over the (2 radius + 1)^2 block centered at each cell, zeros
+    past the edges: two separable passes, columns then rows, as the JAX
+    package's ``reduce_window`` with "SAME" padding and init 0."""
+    k = 2 * radius + 1
+    m = torch.nn.functional.pad(value_map[None, None], (radius,) * 4)
+    m = torch.nn.functional.max_pool2d(m, (1, k), stride=1)
+    return torch.nn.functional.max_pool2d(m, (k, 1), stride=1)[0, 0]
+
+
+def make_bound_stack(value_map, win_x: int, win_y: int,
+                     halos: tuple = BOUND_HALOS):
+    """f32[len(halos), H, W] centered windowed-max bound maps, one per
+    theta halo (``make_bound_stack``, ``matchers.py:370-394`` of the JAX
+    package): ``stack[l][c]`` is the max of ``value_map`` within
+    ``max(win_x, win_y) + halos[l]`` cells of ``c`` in x and in y. Level 0
+    bounds one theta's whole (dx, dy) window; level l also absorbs the
+    endpoint drift of a theta group. Max is exact, so the levels equal the
+    JAX package's bit for bit."""
+    win = max(win_x, win_y)
+    return torch.stack([_centered_max(value_map, win + h) for h in halos])
+
+
+def correlative_match_pruned_batch(value_map, bound_stack,
+                                   grid: gridops.GridMap, initial_poses,
+                                   ranges, angles, valid, scan_min_range,
+                                   scan_max_range, rel_sensor_poses,
+                                   scan_range_max: float,
+                                   range_theta: float,
+                                   usable_range_min: float,
+                                   usable_range_max: float,
+                                   normalized_score_threshold: float,
+                                   num_total_beams, win_x: int, win_y: int,
+                                   win_theta_max: int, group: int = 7,
+                                   top_groups: int = 8, top_thetas: int = 16,
+                                   cost_type: str = "greedy_endpoint",
+                                   greedy_params: tuple = ()):
+    """Q pruned correlative matches, each with an exactness flag
+    (``correlative_match_pruned_batch``, ``matchers.py:397-622`` of the JAX
+    package; the coarse-to-fine prune of
+    scan_matcher_real_time_correlative.cpp:50-145).
+
+    Stage 1 bounds each group of ``group`` thetas with one read per beam
+    of a halo-dilated bound map (the halo level chosen per beam from its
+    range); stage 2 bounds each theta of the ``top_groups`` best groups on
+    the halo-0 map; stage 3 scores the full (2 win + 1)^2 window of the
+    ``top_thetas`` best thetas and takes the first maximum in the
+    reference's (theta, dx, dy) order. Both cuts keep equal bounds in
+    ascending index order, as the JAX package's ``lax.top_k`` does.
+
+    ``exact[q]`` holds iff every bound left unexpanded is strictly below
+    the best score: then the result equals the full-window sweep's, and
+    callers re-run the other rows through the sweep. Tensor arguments and
+    the result as :func:`grid_search_match`'s; returns
+    ``(MatchSummary, exact bool[Q])``.
+    """
+    halos = BOUND_HALOS
+    n_levels = bound_stack.shape[0]
+    # The stage-1 bound is sound only while the halo stack covers a
+    # group's worst endpoint drift, group // 2 + 2 cells at max range
+    # (``matchers.py:447-461`` of the JAX package).
+    if group // 2 + 2 > len(halos) - 1:
+        raise ValueError(f"group={group} exceeds the halo stack "
+                         f"({len(halos)} levels)")
+    if n_levels < len(halos):
+        raise ValueError("bound_stack has fewer halo levels than the "
+                         f"matcher assumes ({len(halos)})")
+    dev = ranges.device
+    q = ranges.shape[0]
+    f32 = torch.float32
+    neg_inf = torch.tensor(-torch.inf, dtype=f32, device=dev)
+    n_total = num_total_beams.to(f32)
+
+    sensor_poses = se2.compound(initial_poses, rel_sensor_poses)
+    max_range = torch.clamp(
+        torch.where(valid, ranges, torch.full_like(ranges, -torch.inf)
+                    ).amax(dim=-1), max=scan_range_max)          # [Q]
+    res = gridops.scalar(grid.resolution, dev)
+    step_t = search_step_theta(res, max_range)                   # [Q]
+    win_act = torch.ceil(0.5 * gridops.scalar(range_theta, dev) / step_t)
+    wgt = (valid & (ranges < scan_range_max)).to(f32)            # [Q, NB]
+
+    h, w = value_map.shape
+    wxn, wyn = 2 * win_x + 1, 2 * win_y + 1
+    ncand = wxn * wyn
+    # Zero-padded flats: clamped off-map reads land in the zero ring.
+    pad = max(win_x, win_y) + max(halos) + 2
+    hp, wp = h + 2 * pad, w + 2 * pad
+    v_flat = torch.nn.functional.pad(value_map, (pad,) * 4).reshape(-1)
+    b_flat = torch.nn.functional.pad(bound_stack, (pad,) * 4).reshape(-1)
+    origin = grid.origin.reshape(1, 2)
+
+    def cells(t_idx):
+        return hit_cells_lattice(origin, grid.resolution, sensor_poses,
+                                 ranges, angles, step_t, t_idx)
+
+    # Stage 1: theta-group bounds.
+    half = group // 2
+    ng = -(-(2 * win_theta_max + 1) // group)
+    top_groups = min(top_groups, ng)
+    top_thetas = min(top_thetas, top_groups * group)
+    g_start = torch.arange(ng, device=dev) * group - win_theta_max   # [NG]
+    drift = torch.floor(half * ranges * step_t[:, None] / res) + 2.0
+    lvl = drift.clamp(1, n_levels - 1).long()                    # [Q, NB]
+    ixc, iyc = cells((g_start + half).expand(q, ng))             # [Q,NG,NB]
+    bvals = _take2d(b_flat, pad, wp, hp, iyc, ixc,
+                    (lvl * (hp * wp))[:, None, :])
+    bound_g = (bvals * wgt[:, None, :]).sum(-1)                  # [Q, NG]
+    g_live = (g_start[None, :] <= win_act[:, None]) & \
+        (g_start[None, :] + group - 1 >= -win_act[:, None])
+    bound_g = torch.where(g_live, bound_g, neg_inf)
+
+    # Stage 2: per-theta bounds inside the best groups.
+    top_g_val, top_g = top_k(bound_g, top_groups)                # [Q, TG]
+    t2 = (g_start[top_g][:, :, None] + torch.arange(group, device=dev)
+          ).reshape(q, top_groups * group)                       # [Q, TT]
+    ix2, iy2 = cells(t2)
+    bound_t = (_take2d(b_flat, pad, wp, hp, iy2, ix2) *
+               wgt[:, None, :]).sum(-1)                          # [Q, TT]
+    t_live = (t2.abs() <= win_act[:, None]) & (t2 <= win_theta_max) & \
+        (t2 >= -win_theta_max) & \
+        torch.isfinite(top_g_val).repeat_interleave(group, dim=-1)
+    bound_t = torch.where(t_live, bound_t, neg_inf)
+
+    # Stage 3: exact windows of the best thetas.
+    _, top_t_idx = top_k(bound_t, top_thetas)                    # [Q, K]
+    t3 = torch.gather(t2, 1, top_t_idx)
+    t3_live = torch.gather(t_live, 1, top_t_idx)
+    ix3, iy3 = cells(t3)                                         # [Q,K,NB]
+    dy = torch.arange(-win_y, win_y + 1, device=dev)
+    dx = torch.arange(-win_x, win_x + 1, device=dev)
+    window = _take2d(v_flat, pad, wp, hp, iy3[..., None, None] + dy[:, None],
+                     ix3[..., None, None] + dx[None, :])        # [Q,K,NB,y,x]
+    scores = (window * wgt[:, None, :, None, None]).sum(2)       # [Q,K,y,x]
+    scores = torch.where(t3_live[:, :, None, None], scores, neg_inf)
+
+    # First maximum in the reference's (theta, dx, dy) order: the smallest
+    # candidate rank among the best scores.
+    sc_flat = scores.transpose(-1, -2).reshape(q, -1)            # [Q, K*x*y]
+    rank = ((t3 + win_theta_max)[:, :, None] * ncand +
+            torch.arange(ncand, device=dev)).reshape(q, -1)
+    best_score = sc_flat.amax(dim=-1)
+    best_rank = torch.where(sc_flat == best_score[:, None], rank,
+                            torch.full_like(rank, 2 ** 30)).amin(dim=-1)
+    bt = best_rank // ncand - win_theta_max
+    bxi = (best_rank % ncand) // wyn
+    byi = best_rank % wyn
+
+    # Exactness certificate, strict: an unexplored candidate tied with the
+    # best could precede it in the reference's order.
+    ub_g = bound_g.scatter(1, top_g, -torch.inf)
+    ub_t = bound_t.scatter(1, top_t_idx, -torch.inf)
+    exact = (ub_g.amax(dim=-1) < best_score) & \
+        (ub_t.amax(dim=-1) < best_score) & torch.isfinite(best_score)
+
+    best_sensor_poses = torch.stack([
+        sensor_poses[:, 0] + (bxi - win_x).to(f32) * res,
+        sensor_poses[:, 1] + (byi - win_y).to(f32) * res,
+        sensor_poses[:, 2] + bt.to(f32) * step_t], dim=-1)
+    cost_mask = range_gate(valid, ranges, usable_range_min,
+                           usable_range_max, scan_min_range[:, None],
+                           scan_max_range[:, None])
+    c, cov = _cost_and_covariance(cost_type, value_map, grid,
+                                  best_sensor_poses, ranges, angles,
+                                  cost_mask, greedy_params)
+    found = best_score > normalized_score_threshold * n_total
+    return _summary(found, c, best_score, n_total, initial_poses,
+                    best_sensor_poses, rel_sensor_poses, cov), exact
 
 
 # ---------------------------------------------------------------------------

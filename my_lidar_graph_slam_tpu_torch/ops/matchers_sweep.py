@@ -33,23 +33,10 @@ def hit_cells_at(origins, resolution: float, sensor_poses, ranges, angles,
     origin f32[1, 2] for every query), over the ORDERED theta lattice
     ``theta_0 + i * step_t``, i in [-win_theta_max, win_theta_max]
     (rotation by angle addition, as ``matchers_mxu.py:229-243``)."""
-    dev = ranges.device
-    nt = 2 * win_theta_max + 1
-    t_idx = torch.arange(nt, device=dev) - win_theta_max
-    st = sensor_poses[:, 2]
-    c0 = torch.cos(st[:, None] + angles)                         # [Q, NB]
-    s0 = torch.sin(st[:, None] + angles)
-    dt = t_idx[None, :].to(torch.float32) * step_t[:, None]      # [Q, NT]
-    ct = torch.cos(dt)[:, :, None]
-    st2 = torch.sin(dt)[:, :, None]
-    cos_phi = c0[:, None, :] * ct - s0[:, None, :] * st2
-    sin_phi = s0[:, None, :] * ct + c0[:, None, :] * st2
-    hx = sensor_poses[:, 0, None, None] + ranges[:, None, :] * cos_phi
-    hy = sensor_poses[:, 1, None, None] + ranges[:, None, :] * sin_phi
-    res = gridops.scalar(resolution, dev)
-    ix = torch.floor((hx - origins[:, 0, None, None]) / res).to(torch.int32)
-    iy = torch.floor((hy - origins[:, 1, None, None]) / res).to(torch.int32)
-    return ix, iy
+    t_idx = torch.arange(2 * win_theta_max + 1,
+                         device=ranges.device) - win_theta_max
+    return matchers.hit_cells_lattice(origins, resolution, sensor_poses,
+                                      ranges, angles, step_t, t_idx)
 
 
 def correlative_match_sweep(value_map, grid: gridops.GridMap, initial_poses,
@@ -108,12 +95,23 @@ def correlative_match_sweep_multi(value_maps, origins, resolution: float,
     leading axes [M, K]. The (map, query) axes fold into the kernels'
     query axis: query ``m * K + k`` reads map ``m`` through ``map_idx``,
     with map ``m``'s origin for its hit cells and its cost. K2 takes
-    ``map_idx`` at any ``kernel_size``, so the fold always applies and
-    the JAX package's per-map fallback (``matchers_mxu.py:363-379``) has
-    no counterpart. Returns a MatchSummary with leading axes [M, K].
+    ``map_idx`` at any ``kernel_size``, so the greedy-endpoint cost always
+    folds; the square-error cost, which reads one map, takes the JAX
+    package's per-map path (``matchers_mxu.py:363-379``): one sweep per
+    map. Returns a MatchSummary with leading axes [M, K].
     """
     m, k = ranges.shape[:2]
     dev = ranges.device
+    if cost_type == "square_error":
+        outs = [_sweep(value_maps[i], origins[i], resolution, None,
+                       initial_poses[i], ranges[i], angles[i], valid[i],
+                       scan_min_range[i], scan_max_range[i],
+                       rel_sensor_poses[i], scan_range_max, range_theta,
+                       usable_range_min, usable_range_max,
+                       normalized_score_threshold, num_total_beams[i],
+                       win_x, win_y, win_theta_max, cost_type,
+                       greedy_params, score_gate) for i in range(m)]
+        return matchers.MatchSummary(*(torch.stack(x) for x in zip(*outs)))
 
     def fold(x):
         return x.reshape((m * k,) + tuple(x.shape[2:]))
@@ -144,9 +142,6 @@ def _sweep(value_map, origin, resolution: float, map_idx, initial_poses,
     """
     if cost_type not in ("greedy_endpoint", "square_error"):
         raise ValueError(f"unknown cost type {cost_type!r}")
-    if cost_type == "square_error" and map_idx is not None:
-        raise NotImplementedError(
-            "the square-error cost over stacked maps is not ported yet")
     dev = ranges.device
     q = ranges.shape[0]
     f32 = torch.float32

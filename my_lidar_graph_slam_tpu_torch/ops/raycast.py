@@ -11,7 +11,9 @@ per-update clamp, binary_bayes_grid_cell.hpp:90-99), so scan order
 matters: :func:`integrate_scans` walks its scans in order and
 never merges them into one scatter. On the card the scatter-add runs on
 atomics whose order varies, so maps built there match the CPU to a
-tolerance, not bit for bit.
+tolerance, not bit for bit. :func:`integrate_scan_counting` walks the same
+cells into a counting map; its whole-number counts are the same bits on
+the card.
 """
 
 from __future__ import annotations
@@ -122,6 +124,30 @@ def integrate_scan(grid: gridops.GridMap, sensor_pose, ranges, angles, valid,
         torch.as_tensor([usable_range_max], dtype=torch.float32,
                         device=ranges.device),
         prob_hit=prob_hit, prob_miss=prob_miss, max_steps=max_steps)
+
+
+def integrate_scan_counting(grid: gridops.CountingGridMap, sensor_pose,
+                            ranges, angles, valid, usable_range_min,
+                            usable_range_max, max_steps: int = 448
+                            ) -> gridops.CountingGridMap:
+    """Integrate one scan under the hit/miss-ratio cell policy
+    (counting_grid_cell.hpp:15-85; ``integrate_scan_counting`` of the JAX
+    package): hit cells get (hits + 1, counts + 1), miss cells counts + 1,
+    through the same cell walk as :func:`integrate_scan`. Returns a new
+    map. The counts are whole numbers, so the order of the card's atomic
+    adds cannot change them."""
+    miss_flat, miss_ok, hit_flat, hit_ok = trace_cells(
+        grid, sensor_pose, ranges, angles, valid, usable_range_min,
+        usable_range_max, max_steps)
+    h, w = grid.shape
+    counts = grid.counts.clone().reshape(-1)
+    hits = grid.hits.clone().reshape(-1)
+    counts.index_put_((miss_flat.reshape(-1),),
+                      miss_ok.reshape(-1).to(torch.float32), accumulate=True)
+    hit_one = hit_ok.reshape(-1).to(torch.float32)
+    counts.index_put_((hit_flat.reshape(-1),), hit_one, accumulate=True)
+    hits.index_put_((hit_flat.reshape(-1),), hit_one, accumulate=True)
+    return grid._replace(hits=hits.reshape(h, w), counts=counts.reshape(h, w))
 
 
 def integrate_scans(grid: gridops.GridMap, node_poses, scan_ranges,

@@ -10,11 +10,10 @@ sizes, beam capacity, ray-step cap) are read as they are.
 Ported strategies: every type the JAX factories accept — the
 RealTimeCorrelative, BranchBound, GridSearch, HillClimbing and
 LinearSolver scan matchers with the GreedyEndpoint or SquareError cost,
-the Nearest loop searcher, the BranchBound, GridSearch and Empty loop
-detectors, and the LM optimizer (host solver below the backend's
-``host_solver_max_nodes``, device solver above) — except the
-RealTimeCorrelative loop detector, which raises ``NotImplementedError``
-("not ported yet"). Unknown types raise ``ValueError``.
+the Nearest loop searcher, the RealTimeCorrelative, BranchBound,
+GridSearch and Empty loop detectors, and the LM optimizer (host solver
+below the backend's ``host_solver_max_nodes``, device solver above).
+Unknown types raise ``ValueError``.
 """
 
 from __future__ import annotations
@@ -64,10 +63,6 @@ class Config:
 def load(path: str) -> Config:
     with open(path) as f:
         return Config(json.load(f))
-
-
-def _not_ported(kind: str, name: str):
-    return NotImplementedError(f"{kind} {name!r} is not ported yet")
 
 
 def _greedy_params(root: Config, group: str) -> tuple:
@@ -170,15 +165,25 @@ def create_loop_detector(root: Config, detector_type: str, group: str):
     """CreateLoopDetector (slam_launcher.cpp:482-497)."""
     if detector_type == "Empty":
         return lc.LoopDetectorEmpty()
-    if detector_type == "RealTimeCorrelative":
-        raise _not_ported("loop detector", detector_type)
-    if detector_type not in ("BranchBound", "GridSearch"):
+    if detector_type not in ("BranchBound", "GridSearch",
+                             "RealTimeCorrelative"):
         raise ValueError(f"unknown loop detector type: {detector_type}")
     g = root.group(group)
     sm_group = root.group(g.get("ScanMatcherConfigGroup"))
     _, gp, umin, umax = _cost_settings(
         root, sm_group.get("CostType", "GreedyEndpoint"),
         sm_group.get("CostConfigGroup", "CostGreedyEndpoint"))
+    if detector_type == "RealTimeCorrelative":
+        return lc.LoopDetectorCorrelative(
+            score_threshold=float(g.get("ScoreThreshold", 0.8)),
+            low_resolution=int(sm_group.get("LowResolutionMapWinSize", 10)),
+            range_x=float(sm_group.get("SearchRangeX", 0.75)),
+            range_y=float(sm_group.get("SearchRangeY", 0.75)),
+            range_theta=float(sm_group.get("SearchRangeTheta", 0.5)),
+            scan_range_max=float(sm_group.get("ScanRangeMax", 20.0)),
+            usable_range_min=umin, usable_range_max=umax,
+            refine_blocks=int(root.get("Tpu.CorrelativeRefineBlocks", 512)),
+            greedy_params=gp)
     if detector_type == "GridSearch":
         return lc.LoopDetectorGridSearch(
             score_threshold=float(g.get("ScoreThreshold", 0.8)),

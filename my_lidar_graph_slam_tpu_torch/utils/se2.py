@@ -4,9 +4,10 @@ Counterpart of ``my_lidar_graph_slam_tpu/utils/se2.py``. Poses are tensors
 of shape ``[..., 3]`` holding ``(x, y, theta)``; every function broadcasts
 over leading axes.
 
-Reference parity: ``Compound`` / ``InverseCompound`` / ``MoveBackward``
-(reference pose.hpp:150-206), ``NormalizeAngle`` (util.hpp:125-144),
-covariance frame rotation (util.hpp:164-195).
+Reference parity: ``Compound`` / ``InverseCompound`` / ``MoveForward`` /
+``MoveBackward`` (reference pose.hpp:150-206), ``NormalizeAngle``
+(util.hpp:125-144), covariance frame rotation (util.hpp:164-195),
+``Distance`` (pose.hpp:121-131).
 """
 
 from __future__ import annotations
@@ -26,6 +27,12 @@ def normalize_angle(theta: torch.Tensor) -> torch.Tensor:
     t = torch.remainder(theta, 2.0 * math.pi)
     t = torch.where(t > math.pi, t - 2.0 * math.pi, t)
     return torch.where(t < -math.pi, t + 2.0 * math.pi, t)
+
+
+def normalize_pose(pose: torch.Tensor) -> torch.Tensor:
+    """Normalize the angular component of a pose tensor ``[..., 3]``."""
+    return torch.cat([pose[..., :2], normalize_angle(pose[..., 2:3])],
+                     dim=-1)
 
 
 def compound(start: torch.Tensor, diff: torch.Tensor) -> torch.Tensor:
@@ -48,6 +55,11 @@ def inverse_compound(start: torch.Tensor, end: torch.Tensor) -> torch.Tensor:
                         end[..., 2] - start[..., 2]], dim=-1)
 
 
+def move_forward(start: torch.Tensor, diff: torch.Tensor) -> torch.Tensor:
+    """Alias of :func:`compound` (pose.hpp:185-190)."""
+    return compound(start, diff)
+
+
 def move_backward(end: torch.Tensor, diff: torch.Tensor) -> torch.Tensor:
     """Pose ``p`` such that ``compound(p, diff) == end`` (pose.hpp:195-206)."""
     t = end[..., 2] - diff[..., 2]
@@ -56,6 +68,47 @@ def move_backward(end: torch.Tensor, diff: torch.Tensor) -> torch.Tensor:
     x = end[..., 0] - c * diff[..., 0] + s * diff[..., 1]
     y = end[..., 1] - s * diff[..., 0] - c * diff[..., 1]
     return torch.stack([x, y, t], dim=-1)
+
+
+def rotation_matrix(theta: torch.Tensor) -> torch.Tensor:
+    """SE(2) covariance rotation matrix ``[..., 3, 3]`` (util.hpp:164-179)."""
+    s = torch.sin(theta)
+    c = torch.cos(theta)
+    z = torch.zeros_like(theta)
+    o = torch.ones_like(theta)
+    return torch.stack([torch.stack([c, -s, z], dim=-1),
+                        torch.stack([s, c, z], dim=-1),
+                        torch.stack([z, z, o], dim=-1)], dim=-2)
+
+
+def rotate_covariance(theta: torch.Tensor, cov: torch.Tensor) -> torch.Tensor:
+    """``R(theta) @ cov @ R(theta)^T`` for ``cov [..., 3, 3]``.
+
+    Each product is a multiply-and-sum, not a matrix product, so the TF32
+    settings of the card do not reach it.
+    """
+    rot = rotation_matrix(theta)
+    tmp = (rot[..., :, :, None] * cov[..., None, :, :]).sum(dim=-2)
+    return (tmp[..., :, None, :] * rot[..., None, :, :]).sum(dim=-1)
+
+
+def covariance_world_to_robot(pose: torch.Tensor,
+                              cov: torch.Tensor) -> torch.Tensor:
+    """World-frame covariance -> robot frame (util.hpp:182-187)."""
+    return rotate_covariance(-pose[..., 2], cov)
+
+
+def covariance_robot_to_world(pose: torch.Tensor,
+                              cov: torch.Tensor) -> torch.Tensor:
+    """Robot-frame covariance -> world frame (util.hpp:190-195)."""
+    return rotate_covariance(pose[..., 2], cov)
+
+
+def distance(p0: torch.Tensor, p1=None) -> torch.Tensor:
+    """Euclidean translation distance (pose.hpp:121-131)."""
+    if p1 is None:
+        return torch.hypot(p0[..., 0], p0[..., 1])
+    return torch.hypot(p0[..., 0] - p1[..., 0], p0[..., 1] - p1[..., 1])
 
 
 # --------------------------------------------------------------------------

@@ -4,8 +4,7 @@ BranchBound-frontend settings end to end, on the CPU.
 For each settings file in ``configs/`` the port's ``create_slam`` builds
 the components the JAX ``create_slam`` builds, with the same settings;
 every matcher, cost and detector type that the JAX factories accept is
-accepted, except the RealTimeCorrelative loop detector, which is not
-ported yet. The end-to-end case runs both launchers on a small synthetic
+accepted. The end-to-end case runs both launchers on a small synthetic
 log with ``configs/launcher_settings_bb_frontend.json`` cut to CI scale
 (0.1 m cells, small maps, 8 m ranges); the JAX loop detector is put on its
 Pallas sweep (interpret mode), the port's path, so both packages run the
@@ -93,7 +92,8 @@ def test_every_jax_matcher_and_cost_is_accepted(matcher, cost):
     _same_component(t, j)
 
 
-@pytest.mark.parametrize("detector", ["BranchBound", "GridSearch", "Empty"])
+@pytest.mark.parametrize("detector", ["BranchBound", "GridSearch", "Empty",
+                                      "RealTimeCorrelative"])
 def test_every_ported_jax_detector_is_accepted(detector):
     group = f"LoopDetector{detector}"
     tree = _tree_with(group)
@@ -107,13 +107,25 @@ def test_every_ported_jax_detector_is_accepted(detector):
 
 
 def test_correlative_loop_detector_is_not_ported_yet():
+    """The RealTimeCorrelative loop detector, the last of the JAX
+    factories' strategies to be ported, now builds as the JAX package's
+    does, with ``Tpu.CorrelativeRefineBlocks``, and in a whole SLAM on the
+    default settings."""
     group = "LoopDetectorRealTimeCorrelative"
     tree = json.load(open(BB_FRONTEND))
-    jconfig.create_loop_detector(jconfig.Config(tree), "RealTimeCorrelative",
-                                 group)
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        tconfig.create_loop_detector(tconfig.Config(tree),
+    tree.setdefault("Tpu", {})["CorrelativeRefineBlocks"] = 96
+    j = jconfig.create_loop_detector(jconfig.Config(tree),
                                      "RealTimeCorrelative", group)
+    t = tconfig.create_loop_detector(tconfig.Config(copy.deepcopy(tree)),
+                                     "RealTimeCorrelative", group)
+    _same_component(t, j)
+    assert t.refine_blocks == 96
+    tree = json.load(open("configs/launcher_settings_default.json"))
+    tree["Backend"].update(LoopDetectorType="RealTimeCorrelative",
+                           LoopDetectorConfigGroup=group)
+    s = tconfig.create_slam(tconfig.Config(tree), device="cpu")
+    assert type(s.backend.detector).__name__ == "LoopDetectorCorrelative"
+    assert s.backend.detector.range_x == 5.0
 
 
 def _small_bb_frontend_settings(path, gt0):

@@ -283,11 +283,15 @@ def test_map_entry_points_default_to_cuda(make):
 
 
 def test_unported_strategies_raise():
-    """The RealTimeCorrelative loop detector is the one strategy of the
-    JAX factories still to port; an unknown type is a ValueError."""
+    """No strategy of the JAX factories is left to port (the
+    RealTimeCorrelative loop detector was the last); an unknown type is a
+    ValueError."""
     cfg = tconfig.load("configs/launcher_settings_default.json")
-    with pytest.raises(NotImplementedError):
-        tconfig.create_loop_detector(cfg, "RealTimeCorrelative",
+    det = tconfig.create_loop_detector(cfg, "RealTimeCorrelative",
+                                       "LoopDetectorRealTimeCorrelative")
+    assert type(det).__name__ == "LoopDetectorCorrelative"
+    with pytest.raises(ValueError):
+        tconfig.create_loop_detector(cfg, "NoSuchDetector",
                                      "LoopDetectorRealTimeCorrelative")
     with pytest.raises(ValueError):
         tconfig.create_scan_matcher(cfg, "NoSuchMatcher",

@@ -318,3 +318,202 @@ def test_search_matchers_on_the_card_match_the_cpu(dev, matcher):
                                rtol=1e-2, atol=1e-6)
     assert int(got.frontier_overflow.cpu()[0]) == \
         int(ref.frontier_overflow[0])
+
+
+# --------------------------------------------------------------------------
+# The correlative loop detector's search, the pruned frontend search and
+# the counting cells on the card.
+# --------------------------------------------------------------------------
+
+
+def _scene_store(scan):
+    """A port ScanStore holding the scene's scan as scan 0."""
+    from my_lidar_graph_slam_tpu_torch.models import map_builder
+    from my_lidar_graph_slam_tpu_torch.sensor.data import RawScan
+
+    store = map_builder.ScanStore(beam_capacity=256)
+    store.append(RawScan(
+        sensor_id="FLASER", timestamp=0.0, odom_pose=np.zeros(3),
+        velocity=np.zeros(3), rel_sensor_pose=np.zeros(3), min_range=0.0,
+        max_range=12.0, min_angle=-np.pi / 2, max_angle=np.pi / 2,
+        angles=scan["angles"][0].numpy().astype(np.float64),
+        ranges=scan["ranges"][0].numpy().astype(np.float64)))
+    return store
+
+
+@pytest.mark.parametrize("refine_blocks", [512, 2])
+def test_two_stage_search_on_the_card_matches_the_cpu(dev, refine_blocks):
+    """The two-stage search (+-0.5 m, +-0.25 rad, low resolution 5) on the
+    card against its CPU run on the same map and scan, padded to two rows
+    with scan 0 at a zero pose as the detector pads: the same lattice
+    cell, certificates and escalations; the cost tail launches K2 once per
+    refinement."""
+    from my_lidar_graph_slam_tpu_torch.ops import correlative_coarse
+    from my_lidar_graph_slam_tpu_torch.ops import grid as gridops
+    from my_lidar_graph_slam_tpu_torch.ops import pyramid
+
+    g, poses, scan = _search_scene()
+    store = _scene_store(scan)
+    init = np.zeros((2, 3), np.float32)
+    init[0] = poses[0].numpy()
+
+    def run(d):
+        gd = gridops.GridMap(*(_to(x, d) for x in g))
+        vals = gridops.values(gd)
+        return correlative_coarse.two_stage_match_batch(
+            pyramid.windowed_max(vals, 5), vals, gd, init, low_resolution=5,
+            range_x=1.0, range_y=1.0, range_theta=0.5, scan_range_max=12.0,
+            usable_range_min=0.01, usable_range_max=12.0,
+            score_threshold=0.1, refine_blocks=refine_blocks,
+            greedy_params=(("standard_deviation", 0.05),
+                           ("scaling_factor", 1.0)),
+            scan_store=store, scan_ids=[0, 0])
+
+    ref = run(torch.device("cpu"))
+    before = greedy_cost.greedy_cost_core.launches
+    got = run(dev)
+    torch.cuda.synchronize()
+    assert greedy_cost.greedy_cost_core.launches == \
+        before + 1 + got.escalations
+    assert got.escalations == ref.escalations
+    np.testing.assert_array_equal(got.exact, ref.exact)
+    assert bool(ref.packed[0, 14] > 0.5)
+    np.testing.assert_allclose(got.packed[:, 0:3], ref.packed[:, 0:3],
+                               rtol=0, atol=1e-4)
+    np.testing.assert_allclose(got.packed[:, 12], ref.packed[:, 12],
+                               rtol=1e-5)
+    np.testing.assert_allclose(got.packed[:, 3:12], ref.packed[:, 3:12],
+                               rtol=1e-2, atol=1e-6)
+
+
+def test_pruned_search_on_the_card_matches_the_cpu(dev):
+    """The pruned search at the frontend's budgets (14 groups, 48 thetas,
+    a 5 x 5 window) on the card against its CPU run: the same lattice
+    cell and certificate; the cost tail launches K2 once."""
+    from my_lidar_graph_slam_tpu_torch.ops import grid as gridops
+    from my_lidar_graph_slam_tpu_torch.ops import matchers
+
+    g, poses, scan = _search_scene()
+
+    def run(d):
+        gd = gridops.GridMap(*(_to(x, d) for x in g))
+        vals = gridops.values(gd)
+        return matchers.correlative_match_pruned_batch(
+            vals, matchers.make_bound_stack(vals, 2, 2), gd, poses.to(d),
+            **{k: _to(v, d) for k, v in scan.items()}, scan_range_max=12.0,
+            range_theta=0.5, usable_range_min=0.01, usable_range_max=12.0,
+            normalized_score_threshold=0.0, win_x=2, win_y=2,
+            win_theta_max=matchers.static_max_theta_window(0.05, 12.0, 0.5),
+            top_groups=14, top_thetas=48)
+
+    ref, ref_exact = run(torch.device("cpu"))
+    before = greedy_cost.greedy_cost_core.launches
+    got, exact = run(dev)
+    torch.cuda.synchronize()
+    assert greedy_cost.greedy_cost_core.launches == before + 1
+    assert bool(exact.cpu()[0]) == bool(ref_exact[0])
+    torch.testing.assert_close(got.estimated_pose.cpu(), ref.estimated_pose,
+                               rtol=0, atol=1e-4)
+    torch.testing.assert_close(got.normalized_score.cpu(),
+                               ref.normalized_score, rtol=1e-5, atol=0)
+
+
+def test_pruned_frontend_reruns_through_the_sweep_on_the_card(
+        dev, monkeypatch):
+    """``CorrelativeMatcher(use_sweep=False)`` through ``match_async`` and
+    ``resolve_async`` on the card. At the frontend's budgets (14 groups,
+    48 thetas) the certificate holds: K2 launches once and nothing is
+    re-run. At budgets of 1 group and 2 thetas it fails: the match is
+    re-run through the sweep (K1 once more, K2 twice in all,
+    ``FrontendPrunedReruns`` one more), which costs at least one more
+    host synchronization, and the pose is the sweep's."""
+    import warnings
+
+    from my_lidar_graph_slam_tpu_torch.models import scan_matchers
+    from my_lidar_graph_slam_tpu_torch.ops import grid as gridops
+    from my_lidar_graph_slam_tpu_torch.utils.metrics import MetricManager
+
+    g, poses, scan = _search_scene()
+    store = _scene_store(scan)
+    grid = gridops.GridMap(*(_to(x, dev) for x in g))
+    init = poses[0].numpy()
+    sweep = scan_matchers.CorrelativeMatcher()
+    ref = sweep.resolve_async(sweep.match_async(grid, store, 0, init), init)
+    pruned = scan_matchers.CorrelativeMatcher(use_sweep=False)
+    reruns = MetricManager.instance().counters("FrontendPrunedReruns")
+    syncs = {}
+    for budgets, exact in (((14, 48), True), ((1, 2), False)):
+        monkeypatch.setattr(scan_matchers, "PRUNED_TOP_GROUPS", budgets[0])
+        monkeypatch.setattr(scan_matchers, "PRUNED_TOP_THETAS", budgets[1])
+        torch.cuda.synchronize()
+        k1, k2 = correlate.window_scores.launches, \
+            greedy_cost.greedy_cost_core.launches
+        n0 = reruns.value
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                got = pruned.resolve_async(
+                    pruned.match_async(grid, store, 0, init), init)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        syncs[exact] = len(caught)
+        assert pruned.last_exact_fraction == float(exact)
+        assert reruns.value == n0 + (0 if exact else 1)
+        assert correlate.window_scores.launches == k1 + (0 if exact else 1)
+        assert greedy_cost.greedy_cost_core.launches == \
+            k2 + (1 if exact else 2)
+        assert bool(got.pose_found) == bool(ref.pose_found)
+        np.testing.assert_allclose(got.estimated_pose, ref.estimated_pose,
+                                   rtol=0, atol=1e-6)
+        np.testing.assert_allclose(got.normalized_score,
+                                   ref.normalized_score, rtol=1e-5)
+    assert syncs[False] >= syncs[True] + 1
+
+
+def test_greedy_cost_core_bit_equal_at_the_correlative_detector_shape(dev):
+    """K2 at the shape the correlative detector gives it on the default
+    settings (a 1536^2 local map, Q = 4, NB = 384, kernel_size 1, scale
+    0.05): bit-equal to the plain core."""
+    gen = torch.Generator().manual_seed(7)
+    occ = (torch.rand((1536, 1536), generator=gen) < 0.1).float()
+    vm = torch.where(occ > 0, torch.full_like(occ, 0.9),
+                     torch.full_like(occ, 0.05)).to(dev)
+    q, nb = 4, 384
+    origin = torch.tensor([-38.4, -38.4], device=dev)
+    poses = torch.stack([torch.rand(q, generator=gen) * 40 - 20,
+                         torch.rand(q, generator=gen) * 40 - 20,
+                         torch.rand(q, generator=gen) * 6 - 3], 1).to(dev)
+    ranges = (0.3 + 19.0 * torch.rand((q, nb), generator=gen)).to(dev)
+    angles = torch.linspace(-1.6, 1.6, nb).expand(q, nb).contiguous().to(dev)
+    mask = (torch.rand((q, nb), generator=gen) < 0.5).to(dev)
+    cells = greedy_cost.prepare_cells(origin, poses, ranges, angles, 0.05,
+                                      0.075)
+    table = greedy_cost.class_table(0.05, 1, 1.0, dev)
+    args = (vm, cells, mask, table, 1, 0.1)
+    assert torch.equal(greedy_cost.greedy_cost_core(*args),
+                       greedy_cost.greedy_cost_core_plain(*args))
+
+
+def test_counting_integration_on_the_card_is_bit_equal(dev):
+    """Whole-number counts: the card's atomic adds give the CPU's bits."""
+    from my_lidar_graph_slam_tpu_torch.io import synth
+    from my_lidar_graph_slam_tpu_torch.ops import grid as gridops
+    from my_lidar_graph_slam_tpu_torch.ops import raycast
+
+    segs = synth.intel_world()
+    beams = np.linspace(-np.pi / 2, np.pi / 2, 181)
+    maps = [gridops.counting_empty(512, 512, 0.05, center=(-14.0, -9.0),
+                                   device=d) for d in ("cpu", dev)]
+    for k in range(5):
+        p = np.array([-14.0 + 0.3 * k, -9.0, 0.3 + 0.1 * k])
+        r = synth.raycast_segments(p[:2], p[2] + beams, segs, 12.0)
+        args = [torch.tensor(a, dtype=torch.float32) for a in (p, r, beams)]
+        args.append(torch.ones(181, dtype=torch.bool))
+        maps = [raycast.integrate_scan_counting(
+            m, *(a.to(m.device) for a in args), 0.01, 12.0, max_steps=256)
+            for m in maps]
+    cpu, card = maps
+    assert torch.equal(card.hits.cpu(), cpu.hits)
+    assert torch.equal(card.counts.cpu(), cpu.counts)
+    assert float(cpu.hits.sum()) > 500

@@ -21,7 +21,15 @@ The same state also goes, without changing the run, through
 * the exhaustive sweep, ``use_mxu=True, mxu_interpret=True``, on the
   passes listed (interpret mode takes tens of minutes per pass on a CPU;
   the run is deterministic, so a second run can add the sweep on passes
-  picked from the first).
+  picked from the first), and
+* the RealTimeCorrelative detector (``rtc``) built from the same settings
+  file's ``LoopDetectorRealTimeCorrelative`` group, on every pass: per
+  candidate node its found flag, score and pose, the exactness flag of
+  every row of its padded batch, the escalations it took, and the
+  windowed-max coarse map it actually used (stored once per distinct
+  content, as the fine maps are), with a flag telling whether that cached
+  coarse map was older than the local map (the JAX package keeps it across
+  the rebuilds after a loop closure).
 
 The scan store is saved at the end (it only grows, so scan ids stay
 valid), with the simulator's ground-truth poses and their timestamps. ``tools/replay_detections_torch.py`` hands the same state to the
@@ -46,7 +54,10 @@ import jax  # noqa: E402
 
 from my_lidar_graph_slam_tpu.io import carmen, synth  # noqa: E402
 from my_lidar_graph_slam_tpu.models import loop_closure as lc  # noqa: E402
+from my_lidar_graph_slam_tpu.ops import correlative_coarse  # noqa: E402
+from my_lidar_graph_slam_tpu.ops import grid as gridops  # noqa: E402
 from my_lidar_graph_slam_tpu.ops import matchers, matchers_mxu  # noqa: E402
+from my_lidar_graph_slam_tpu.ops import pyramid as pyrops  # noqa: E402
 from my_lidar_graph_slam_tpu.sensor.data import RawScan  # noqa: E402
 from my_lidar_graph_slam_tpu.utils import config  # noqa: E402
 
@@ -55,15 +66,18 @@ UNCAPPED = 65536
 
 
 class Stash:
-    """Keeps the MatchSummary of the last call of a matcher function."""
+    """Keeps the result of the last call of a matcher function and counts
+    its calls."""
 
     def __init__(self, module, name):
         self.module, self.name = module, name
         self.fn = getattr(module, name)
         self.last = None
+        self.calls = 0
         setattr(module, name, self)
 
     def __call__(self, *args, **kwargs):
+        self.calls += 1
         self.last = self.fn(*args, **kwargs)
         return self.last
 
@@ -102,13 +116,20 @@ def main() -> int:
         raise SystemExit("expected the branch-and-bound detector on a CPU")
     uncapped = dataclasses.replace(det, frontier_cap=UNCAPPED)
     sweep = dataclasses.replace(det, use_mxu=True, mxu_interpret=True)
+    root = config.load(SETTINGS)
+    rtc = config.create_loop_detector(root, "RealTimeCorrelative",
+                                      "LoopDetectorRealTimeCorrelative")
     bb_stash = Stash(matchers, "branch_bound_match_batch")
     sweep_stash = Stash(matchers_mxu, "correlative_match_mxu_batch")
+    rtc_stash = Stash(correlative_coarse, "two_stage_match_batch")
+    rtc_core = Stash(correlative_coarse, "_two_stage_core_batch")
 
     arrays = {}
     maps = {}            # local map idx -> list of (map key, log_odds)
     meta = []
     run_detect = det.detect
+
+    coarse_maps = {}     # local map idx -> list of (coarse key, coarse)
 
     def map_key(lm):
         lo = np.asarray(lm.grid.log_odds)
@@ -120,6 +141,18 @@ def main() -> int:
         arrays[key + "_observed"] = np.asarray(lm.grid.observed)
         arrays[key + "_origin"] = np.asarray(lm.grid.origin, np.float32)
         maps.setdefault(lm.idx, []).append((key, lo))
+        return key
+
+    def coarse_key(lm):
+        """Key of the coarse map the correlative detector used on ``lm``
+        (its cache), stored once per distinct content."""
+        coarse = np.asarray(lm._coarse_cache[1])
+        for key, prev in coarse_maps.get(lm.idx, []):
+            if np.array_equal(prev, coarse):
+                return key
+        key = f"coarse{sum(len(v) for v in coarse_maps.values()):04d}"
+        arrays[key] = coarse
+        coarse_maps.setdefault(lm.idx, []).append((key, coarse))
         return key
 
     def detect(graph, builder, candidates):
@@ -143,8 +176,22 @@ def main() -> int:
             times["sweep"] = time.perf_counter() - t0
             rows["sweep"] = summary_rows(sweep_stash.last, k)
         lm = builder.local_maps[cand.local_map_idx]
+        calls0 = rtc_core.calls
+        t0 = time.perf_counter()
+        rtc.detect(graph, builder, candidates)
+        times["rtc"] = time.perf_counter() - t0
+        summary, exact = rtc_stash.last
+        rows["rtc"] = summary_rows(summary, k)
+        fresh = np.asarray(pyrops.windowed_max(gridops.values(lm.grid),
+                                               rtc.low_resolution))
         n = graph.num_nodes
         pre = f"pass{p:04d}_"
+        arrays[pre + "rtc_exact"] = np.asarray(exact, bool)
+        arrays[pre + "rtc_escalations"] = np.asarray(
+            rtc_core.calls - calls0 - 1, np.int64)
+        arrays[pre + "rtc_stale"] = np.asarray(
+            not np.array_equal(fresh, np.asarray(lm._coarse_cache[1])))
+        arrays[pre + "rtc_coarse"] = np.asarray(coarse_key(lm))
         arrays[pre + "poses"] = graph.poses[:n].copy()
         arrays[pre + "scan_ids"] = graph.scan_ids[:n].copy()
         arrays[pre + "nodes"] = np.asarray(cand.node_indices, np.int64)
@@ -180,6 +227,10 @@ def main() -> int:
               "node_idx_max"):
         arrays["meta_" + f] = np.asarray([m[f] for m in meta], np.int64)
     arrays["beam_capacity"] = np.asarray(st.beam_capacity)
+    arrays["rtc_settings"] = np.asarray([
+        rtc.score_threshold, rtc.low_resolution, rtc.range_x, rtc.range_y,
+        rtc.range_theta, rtc.scan_range_max, rtc.usable_range_min,
+        rtc.usable_range_max, rtc.refine_blocks], np.float64)
     arrays["gt_poses"] = np.asarray(gt, np.float64)
     arrays["gt_timestamps"] = np.asarray([s.timestamp for s in scans])
     np.savez_compressed(args.out, **arrays)

@@ -22,10 +22,21 @@ search window around the node's pose, and, when the file holds the
 ground truth, the error of the loop edge (anchor node to matched pose)
 against the true relative pose.
 
-The port then also drives its own online pipeline over the same log (``chip_smoke.slice_log`` and ``chip_smoke.slice_slam``) and its
+The port then also drives its own online pipeline over the same log
+(``chip_smoke.slice_log`` and ``chip_smoke.slice_slam``) and its
 detection passes are set beside the JAX run's, in order: the summary names
 the first pass where the two runs differ (node count, node poses beyond
 1e-3, candidate, found flags or matched poses) and what differs there.
+
+When the file holds the RealTimeCorrelative detector's passes (``rtc``),
+the port's ``LoopDetectorCorrelative``, built from the same settings
+file's group, runs on each pass too, with the coarse map the JAX detector
+used (which can be older than the local map: the JAX package keeps it
+across rebuilds). Per pass the summary ("rtc") sets beside the JAX rows
+the found flags, whether the poses sit at the same lattice cell (within
+1e-5), the scores' relative difference, the exactness flags of every
+row of the padded batch, the escalations, and whether the coarse map was
+stale.
 
 Prints one line per pass and a JSON summary as the last line.
 ``--device`` defaults to ``cuda``.
@@ -38,6 +49,7 @@ import json
 import os
 import sys
 import tempfile
+import time
 
 import numpy as np
 import torch
@@ -130,6 +142,123 @@ def own_run(z, device, stash):
             "nodes": slam.graph.num_nodes,
             "first_difference": first,
             "node_pose_max_abs_diff_before": pose_diff}
+
+
+class BatchStash:
+    """Keeps the result of the port's last two-stage batch."""
+
+    def __init__(self):
+        from my_lidar_graph_slam_tpu_torch.ops import correlative_coarse
+
+        self.module = correlative_coarse
+        self.fn = correlative_coarse.two_stage_match_batch
+        self.last = None
+        correlative_coarse.two_stage_match_batch = self
+
+    def __call__(self, *args, **kwargs):
+        self.last = self.fn(*args, **kwargs)
+        return self.last
+
+
+def rtc_compare(z, store, slam_config, device, gt_of_scan):
+    """The port's correlative detector on every recorded pass, with the
+    JAX detector's coarse map; per-pass agreement, the loop-edge errors of
+    its found rows against the ground truth (``gt_of_scan``, or None),
+    and totals."""
+    root = config.load(SETTINGS)
+    det = config.create_loop_detector(root, "RealTimeCorrelative",
+                                      "LoopDetectorRealTimeCorrelative")
+    builder = mb.GridMapBuilder(slam_config, store, device=device)
+    stash = BatchStash()
+    no_edge = np.zeros((0,), np.int64)
+    rows = []
+    for p in range(len(z["meta_map"])):
+        pre = f"pass{p:04d}_"
+        key = str(z["meta_map"][p])
+        interop.set_local_maps(builder, [dict(
+            log_odds=z[key + "_log_odds"], observed=z[key + "_observed"],
+            origin=z[key + "_origin"],
+            node_idx_min=int(z["meta_node_idx_min"][p]),
+            node_idx_max=int(z["meta_node_idx_max"][p]), finished=True)])
+        lm = builder.local_maps[0]
+        lm.coarse = (det.low_resolution, torch.from_numpy(
+            z[str(z[pre + "rtc_coarse"])]).to(device), lm.grid_version)
+        graph = interop.pose_graph_from_arrays(
+            z[pre + "poses"], z[pre + "scan_ids"], no_edge, no_edge,
+            np.zeros((0, 3)), np.zeros((0, 3, 3)))
+        nodes = [int(n) for n in z[pre + "nodes"]]
+        t0 = time.perf_counter()
+        det.detect(graph, builder, [lc.LoopCandidate(
+            node_indices=nodes, local_map_idx=0,
+            local_map_node_idx=int(z["meta_local_map_node_idx"][p]))])
+        ms = 1e3 * (time.perf_counter() - t0)
+        out = stash.last
+        k = len(nodes)
+        found = out.packed[:k, 14] > 0.5
+        pose = out.packed[:k, 0:3]
+        score = out.packed[:k, 12]
+        jfound = z[pre + "rtc_found"]
+        jscore = z[pre + "rtc_score"]
+        both = found & jfound
+        rel = np.abs(score - jscore) / np.maximum(np.abs(jscore), 1e-12)
+        anchor = int(z["meta_local_map_node_idx"][p])
+        edge_err = []
+        if gt_of_scan is not None:
+            poses, scan_ids = z[pre + "poses"], z[pre + "scan_ids"]
+            for r in np.flatnonzero(found):
+                est = se2.inverse_compound_np(poses[anchor],
+                                              pose[r].astype(np.float64))
+                ref = se2.inverse_compound_np(
+                    gt_of_scan[scan_ids[anchor]],
+                    gt_of_scan[scan_ids[nodes[r]]])
+                edge_err.append(float(np.hypot(*(est[:2] - ref[:2]))))
+        rows.append(dict(
+            pass_=p, rows=k, found=int(found.sum()),
+            jax_found=int(jfound.sum()),
+            found_equal=bool((found == jfound).all()),
+            same_cell=bool((np.abs(pose - z[pre + "rtc_pose"]).max(axis=1)
+                            <= POSE_ATOL).all()),
+            same_cell_found=bool((np.abs(pose[both] -
+                                         z[pre + "rtc_pose"][both]) <=
+                                  POSE_ATOL).all()),
+            score_rtol=float(rel.max()),
+            exact_equal=bool((out.exact == z[pre + "rtc_exact"]).all()),
+            exact=[bool(e) for e in out.exact],
+            escalations=out.escalations,
+            jax_escalations=int(z[pre + "rtc_escalations"]),
+            stale=bool(z[pre + "rtc_stale"]), ms=ms, edge_err_m=edge_err))
+        print(f"rtc pass {p}: found {int(found.sum())}/{k} (jax "
+              f"{int(jfound.sum())}) same cell {rows[-1]['same_cell']} "
+              f"score rtol {rows[-1]['score_rtol']:.2e} escalations "
+              f"{out.escalations}/{rows[-1]['jax_escalations']} stale "
+              f"{rows[-1]['stale']} {ms:.1f} ms", flush=True)
+    stash.module.two_stage_match_batch = stash.fn
+    errs = [e for r in rows for e in r["edge_err_m"]]
+    return {
+        "passes": len(rows),
+        "found_rows": sum(r["found"] for r in rows),
+        "jax_found_rows": sum(r["jax_found"] for r in rows),
+        "passes_found_equal": sum(r["found_equal"] for r in rows),
+        "passes_same_cell": sum(r["same_cell"] for r in rows),
+        "passes_same_cell_where_both_found": sum(
+            r["same_cell_found"] for r in rows),
+        "score_rtol_max": max((r["score_rtol"] for r in rows), default=0.0),
+        "passes_exact_equal": sum(r["exact_equal"] for r in rows),
+        "passes_all_exact": sum(all(r["exact"]) for r in rows),
+        "escalations": sum(r["escalations"] for r in rows),
+        "jax_escalations": sum(r["jax_escalations"] for r in rows),
+        "passes_escalations_equal": sum(
+            r["escalations"] == r["jax_escalations"] for r in rows),
+        "stale_passes": sum(r["stale"] for r in rows),
+        "edge_err_m": {"median": float(np.median(errs)),
+                       "max": float(max(errs)),
+                       "over_1m": int(sum(e > 1.0 for e in errs))}
+        if errs else None,
+        "pass_ms_median": float(np.median([r["ms"] for r in rows]))
+        if rows else None,
+        "differing_passes": [r for r in rows if not (
+            r["found_equal"] and r["same_cell"] and r["exact_equal"]
+            and r["escalations"] == r["jax_escalations"])]}
 
 
 def main() -> int:
@@ -274,6 +403,9 @@ def main() -> int:
                "window_m": [win_x * res, win_y * res],
                "bb_rows_with_frontier_overflow": overflow_rows,
                "found_rows": found_rows, "compare_with_port": compare}
+    if "pass0000_rtc_found" in z:
+        summary["rtc"] = rtc_compare(z, store, slam.builder.config,
+                                     builder.device, gt_of_scan)
     summary["own_run"] = own_run(z, builder.device, stash)
     if args.out:
         with open(args.out, "w") as f:
