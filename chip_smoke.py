@@ -26,7 +26,7 @@ with a CUDA card and the CUDA toolkit (``nvcc``). Phases:
    intel-like world, 2 laps at 0.08 m steps, through ``config.load``,
    ``config.create_slam``, ``carmen.load`` and ``process_scan``. The launch
    counters are zeroed just before and read just after, as in phases 6
-   to 10; each of them fails if a kernel did not launch.
+   to 11; each of them fails if a kernel did not launch.
 6. Launcher: ``launcher.run`` (the entry point of ``python -m
    my_lidar_graph_slam_tpu_torch.launcher``) on
    ``configs/launcher_settings_robust.json`` verbatim (up to 3 candidate
@@ -90,7 +90,28 @@ with a CUDA card and the CUDA toolkit (``nvcc``). Phases:
    (``io/carmen.py::load_old_laser_fast``, built with the host's C++
    compiler) against ``carmen.load`` on phase 4's log: the same scans,
    ranges within 1e-4 and poses within 1e-9; both parse times.
-5. Times (run last, on the inputs recorded by phases 4 and 6-10): first
+11. The parallel layer (``parallel/``): (a) phase 4's final graph and the
+   ring of phase 9, each solved by the node-sharded and the edge-sharded
+   LM over ``Mesh([cuda:0] * 4)`` (median of 3 solves at 661 nodes, one
+   on the ring): poses finite and within 0.05 m of the host solver's in x
+   and y; ms per solve, LM and CG steps, host reads, psum calls and
+   bytes, ``psum_bytes_per_cg_step``. (b) ``launcher.run(...,
+   mesh_devices=1)`` on the default settings, verbatim, online and
+   blocking, over the log's first 1600 scans: every artifact, at least
+   one closure and one node-sharded solve, a finite ATE, K2 launched at
+   the path "detection-fanout" (the branch-and-bound fan-out detector's
+   cost tail) and K1 at the frontend; scans/s, closures, loop edges,
+   ATE, median ms per detection pass (queue drained first) and per
+   solve, ``frontier_overflow``, padded rows and the accepted loop nodes
+   outside +-range/2. (c) Two processes under gloo, one shard each on
+   card 0, run the edge- and node-sharded solves of phase 4's graph and
+   one fan-out of (b); one process of world size 1 under NCCL runs a
+   node-sharded solve (``python3 chip_smoke.py --mesh-worker ...``, all
+   three at once, killed after 240 s). Each must agree with the same call
+   over an in-process mesh of as many shards of the card: node-sharded x
+   and y within 0.02 m, edge-sharded poses within 1e-3, the fan-out's
+   found flags equal, poses within 1e-4 and scores rtol 1e-5.
+5. Times (run last, on the inputs recorded by phases 4 and 6-11): first
    the launch floor, an empty kernel launched as the kernels are (ctypes,
    current stream), back to back and queued. Then, for every shape that
    any of those runs gave a kernel, keyed by (path, M, Q), the kernel and
@@ -146,6 +167,14 @@ ASYNC_SCANS = 800
 RING_NODES, RING_LOOPS = 8192, 4
 DEVICE_SOLVER_SCANS, DEVICE_SOLVER_FROM = 2000, 128
 SOLVER_ATOL = 0.05
+# Phase 11: shards of the one card in (a), the mesh launcher run's prefix
+# (phase 9(c)'s 2000 scans cut to keep the phase within 120 s; the first
+# loop candidate comes at scan 840), and the (c) processes' collective and
+# overall timeouts.
+MESH_SHARDS = 4
+MESH_SCANS = 1600
+MESH_GROUP_TIMEOUT_S = 120
+MESH_WORKER_TIMEOUT_S = 240
 SEED = 0
 LAPS = 2
 STEP = 0.08
@@ -1206,6 +1235,386 @@ def phase_native_reader(workdir):
 
 
 # --------------------------------------------------------------------------
+# Phase 11: the parallel layer (mesh, multi-process runtime, sharded
+# solvers, branch-and-bound fan-out)
+# --------------------------------------------------------------------------
+
+
+def sharded_rows(torch, name, snap, n, lm_config, mesh, runs, host):
+    """The node- and edge-sharded solves of ``snap`` over ``mesh``,
+    ``runs`` times each; fails unless the poses are finite and within
+    SOLVER_ATOL of the host solver's in x and y. Returns the rows and the
+    last poses of each solver."""
+    from my_lidar_graph_slam_tpu_torch.parallel import distributed, multihost
+
+    d = mesh.num_shards
+    sharded = distributed.partition_graph_by_nodes(snap, d)
+    solvers = {
+        "nodes": lambda: distributed.optimize_sharded_nodes(
+            sharded, lm_config, mesh),
+        "edges": lambda: distributed.optimize_sharded(snap, lm_config, mesh)}
+    rows, last = [], {}
+    for solver, solve in solvers.items():
+        times = []
+        for _ in range(runs):
+            calls0, bytes0 = mesh.psum_calls, mesh.psum_bytes
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = solve()
+            poses = multihost.fetch_global(res.poses)[:n]
+            times.append(1e3 * (time.perf_counter() - t0))
+        last[solver] = poses
+        row = {"graph": name, "solver": solver, "shards": d, "N": n,
+               "ms_median": float(np.median(times)), "ms": times,
+               "lm_iterations": res.iterations,
+               "cg_iterations": res.cg_iterations,
+               "host_syncs": res.host_syncs,
+               "psum_calls": mesh.psum_calls - calls0,
+               "psum_bytes": mesh.psum_bytes - bytes0,
+               "max_xy_err_vs_host_m": float(
+                   np.abs(poses[:, :2] - host[:n, :2]).max()),
+               "total_error": float(res.total_error)}
+        if solver == "nodes":
+            row["psum_bytes_per_cg_step"] = \
+                distributed.psum_bytes_per_cg_step(sharded)
+            row["cross_edges"] = int(sharded.c_mask.sum())
+        log("  " + json.dumps(row))
+        if not np.isfinite(poses).all():
+            raise AssertionError(f"{solver}-sharded solve of {name}: "
+                                 "non-finite poses")
+        if row["max_xy_err_vs_host_m"] > SOLVER_ATOL:
+            raise AssertionError(
+                f"{solver}-sharded solve of {name}: "
+                f"{row['max_xy_err_vs_host_m']} m from the host solver")
+        rows.append(row)
+    return rows, last
+
+
+def phase_mesh_solvers(torch, dev, slam4):
+    """(a) phase 4's final graph and the RING_NODES ring, each solved by
+    the node- and the edge-sharded LM over MESH_SHARDS shards of the one
+    card (median of 3 solves at 661 nodes, one at the ring), against the
+    host solver."""
+    from my_lidar_graph_slam_tpu_torch.io import synth
+    from my_lidar_graph_slam_tpu_torch.models import optimizer_host
+    from my_lidar_graph_slam_tpu_torch.models.slam import _round_multiple
+    from my_lidar_graph_slam_tpu_torch.parallel.mesh import Mesh
+
+    lm_config = slam4.backend.lm_config
+    mesh = Mesh(devices=[dev] * MESH_SHARDS)
+    rows = []
+    ring, _ = synth.ring_graph(RING_NODES, seed=SEED, n_loops=RING_LOOPS)
+    for name, graph, runs in (("phase 4 final graph", slam4.graph, 3),
+                              (f"ring {RING_NODES}", ring, 1)):
+        snap = graph.snapshot(edge_cap=_round_multiple(graph.num_edges,
+                                                       MESH_SHARDS))
+        host = optimizer_host.optimize_host(snap, lm_config).poses
+        rows += sharded_rows(torch, name, snap, graph.num_nodes, lm_config,
+                             mesh, runs, host)[0]
+    return rows
+
+
+def phase_mesh_launcher(torch, workdir):
+    """(b) ``launcher.run(..., mesh_devices=1)`` on the default settings,
+    verbatim, online and blocking, over the log's first MESH_SCANS scans:
+    the node-sharded solve at every closure and the branch-and-bound
+    fan-out detector, K2 recorded at "detection-fanout". Each detection
+    pass is timed after the queue is drained, and the accepted loop nodes
+    whose match lies outside the configured +-range/2 window (inside BB's
+    rounded-up lattice) are counted. Returns the stats, the recorders and
+    the last fan-out call that found a row (for (c))."""
+    from my_lidar_graph_slam_tpu_torch import launcher
+    from my_lidar_graph_slam_tpu_torch.models import loop_closure
+    from my_lidar_graph_slam_tpu_torch.models import slam as slam_mod
+    from my_lidar_graph_slam_tpu_torch.parallel import distributed, multihost
+    from my_lidar_graph_slam_tpu_torch.utils import config, se2
+    from my_lidar_graph_slam_tpu_torch.utils.metrics import MetricManager
+
+    latest = int(config.load(SETTINGS).get("Tpu.LatestMapSize", 1024))
+    out = os.path.join(workdir, "mesh")
+    pass_ms, solve_ms, outside, fanouts = [], [], [], []
+
+    def timed_detect(fn, det, graph, builder, candidates):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        results = fn(det, graph, builder, candidates)
+        pass_ms.append(1e3 * (time.perf_counter() - t0))
+        for r in results:
+            matched = se2.compound_np(r.start_node_pose, r.relative_pose)
+            d = np.abs(matched[:2] - graph.poses[r.end_node_idx][:2])
+            outside.append(bool(d[0] > 0.5 * det.range_x + 1e-6 or
+                                d[1] > 0.5 * det.range_y + 1e-6))
+        return results
+
+    def timed_solve(fn, backend, snapshot):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fn(backend, snapshot)
+        solve_ms.append(1e3 * (time.perf_counter() - t0))
+        return res
+
+    def kept_fanout(fn, *args, **kwargs):
+        res = fn(*args, **kwargs)
+        fanouts.append((args, kwargs, res))
+        return res
+
+    spies = [MethodSpy(loop_closure.LoopDetectorBranchBound,
+                       "_detect_fanout", timed_detect),
+             MethodSpy(slam_mod.Backend, "_optimize", timed_solve),
+             MethodSpy(distributed, "branch_bound_fanout", kept_fanout)]
+    MetricManager.reset_instance()
+    rec = start_recording(latest, "detection-fanout")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        run = launcher.run(os.path.join(workdir, LOG_NAME), SETTINGS, out,
+                           threaded_backend=False, max_scans=MESH_SCANS,
+                           mesh_devices=1,
+                           gt_path=os.path.join(workdir, GT_NAME))
+    finally:
+        for spy in spies:
+            spy.restore()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = stop_recording(rec, "the mesh launcher run")
+
+    suffixes = (".png", ".json", "-latest.png", "-latest.json",
+                ".posegraph.json", "-posegraph.png", ".ckpt.npz",
+                ".metrics.json")
+    missing = [x for x in suffixes if not os.path.exists(out + x)]
+    if missing:
+        raise AssertionError(f"mesh-run artifacts missing: {missing}")
+    counters = json.load(open(out + ".metrics.json"))["Counters"]
+
+    def counter(name):
+        return counters.get(name, {}).get("value", 0)
+
+    fan_k2 = {f"M={m} Q={q}": n for (path, m, q), n in rec[1].counts.items()
+              if path == "detection-fanout"}
+    stats = {
+        "scans": run["num_scans"], "nodes": run["num_nodes"],
+        "edges": run["num_edges"], "loop_closures": run["num_loop_closures"],
+        "loop_edges": run["num_edges"] - (run["num_nodes"] - 1),
+        "ate_aligned_m": run["ate_rmse_m"], "seconds": run["elapsed_s"],
+        "scans_per_s": run["scans_per_s"], "wall_s": wall,
+        "detection_passes": len(pass_ms),
+        "detection_pass_ms_median": float(np.median(pass_ms))
+        if pass_ms else None,
+        "detection_pass_ms_max": float(max(pass_ms)) if pass_ms else None,
+        "sharded_solves": len(solve_ms),
+        "solve_ms_median": float(np.median(solve_ms)) if solve_ms else None,
+        "solve_ms_max": float(max(solve_ms)) if solve_ms else None,
+        "frontier_overflow": counter("LoopDetectFrontierOverflow"),
+        "padded_rows": counter("LoopDetectMxuPaddedQueries"),
+        "real_rows": counter("LoopDetectMxuQueries"),
+        "accepted_loop_nodes": len(outside),
+        "accepted_outside_window": int(sum(outside)),
+        "k2_detection_fanout_launches": fan_k2,
+        "launches": launches,
+    }
+    log("  " + json.dumps(stats))
+    if stats["loop_closures"] < 1:
+        raise AssertionError("the mesh launcher run closed no loop")
+    if stats["sharded_solves"] < 1:
+        raise AssertionError("the mesh launcher run made no sharded solve")
+    if not np.isfinite(stats["ate_aligned_m"]):
+        raise AssertionError("the mesh launcher run's ATE is not finite")
+    if not fan_k2:
+        raise AssertionError("K2 never launched on the detection-fanout path")
+    found = [f for f in fanouts
+             if multihost.fetch_global(f[2].pose_found).any()]
+    if not found:
+        raise AssertionError("no fan-out of the mesh run found a row")
+    return stats, rec, found[-1]
+
+
+def save_mesh_inputs(torch, workdir, slam4, fanout):
+    """Phase 4's graph and one fan-out call of (b), padded to an even
+    row count, as .npz files for the (c) workers; returns their paths."""
+    from my_lidar_graph_slam_tpu_torch.models.slam import _round_multiple
+
+    g = slam4.graph
+    snap = g.snapshot(edge_cap=_round_multiple(g.num_edges, 2))
+    graph_path = os.path.join(workdir, "mesh_graph.npz")
+    np.savez(graph_path, num_nodes=g.num_nodes, **snap._asdict())
+    (pyr, grid, *rows), kw, _ = fanout
+    rows = [r.cpu().numpy() if hasattr(r, "cpu") else np.asarray(r)
+            for r in rows]
+    k = rows[0].shape[0]
+    arrays, scalars = rows[:8], rows[8:]
+    if k % 2:      # one all-invalid row, beam count 1 as the detector pads
+        arrays = [np.concatenate([a, np.zeros_like(a[:1])]) for a in arrays]
+        arrays[7][-1] = 1.0
+    fan_path = os.path.join(workdir, "mesh_fanout.npz")
+    np.savez(fan_path, pyramid=pyr.cpu().numpy(),
+             log_odds=grid.log_odds.cpu().numpy(),
+             observed=grid.observed.cpu().numpy(),
+             origin=grid.origin.cpu().numpy(), resolution=grid.resolution,
+             rows=np.array(len(arrays)), scalars=np.asarray(scalars, float),
+             kwargs=json.dumps({k_: v for k_, v in kw.items()
+                                if k_ not in ("mesh", "axis")}),
+             **{f"row{i}": a for i, a in enumerate(arrays)})
+    return graph_path, fan_path
+
+
+def load_mesh_inputs(torch, graph_path, fan_path, dev):
+    """The inverse of :func:`save_mesh_inputs`: (snapshot, node count,
+    fan-out positional arguments, keyword arguments)."""
+    from my_lidar_graph_slam_tpu_torch.models.pose_graph import GraphArrays
+    from my_lidar_graph_slam_tpu_torch.ops import grid as gridops
+
+    z = np.load(graph_path)
+    snap = GraphArrays(*(z[f] for f in GraphArrays._fields))
+    f = np.load(fan_path)
+    grid = gridops.GridMap(torch.from_numpy(f["log_odds"]).to(dev),
+                           torch.from_numpy(f["observed"]).to(dev),
+                           torch.from_numpy(f["origin"]).to(dev),
+                           float(f["resolution"]))
+    rows = [f[f"row{i}"] for i in range(int(f["rows"]))]
+    args = [torch.from_numpy(f["pyramid"]).to(dev), grid, *rows,
+            *(float(s) for s in f["scalars"])]
+    return snap, int(z["num_nodes"]), args, json.loads(str(f["kwargs"]))
+
+
+def mesh_worker(argv):
+    """``chip_smoke.py --mesh-worker MODE RANK WORLD PORT GRAPH FANOUT OUT
+    LMCONFIG``: one process of phase 11(c). ``gloo``: rank RANK of WORLD
+    on card 0 with one shard, the edge- and node-sharded solves of the
+    graph and the fan-out; ``nccl``: world size 1 under NCCL, one
+    node-sharded solve. Rank 0 writes the results to OUT."""
+    import torch
+
+    from my_lidar_graph_slam_tpu_torch.models.optimizer_host import LMConfig
+    from my_lidar_graph_slam_tpu_torch.parallel import distributed, multihost
+
+    mode, rank, world, port, graph_path, fan_path, out, cfg = argv
+    rank, world = int(rank), int(world)
+    lm_config = LMConfig(**json.loads(cfg))
+    multihost.initialize(f"127.0.0.1:{port}", world, rank, device="cuda",
+                         backend=mode, timeout_s=MESH_GROUP_TIMEOUT_S)
+    mesh = multihost.global_mesh("shard", device="cuda")
+    snap, n, fan_args, fan_kw = load_mesh_inputs(torch, graph_path,
+                                                 fan_path, mesh.devices[0])
+    res = {}
+    t0 = time.perf_counter()
+    part = distributed.partition_graph_by_nodes(snap, mesh.num_shards)
+    res["nodes"] = multihost.fetch_global(distributed.optimize_sharded_nodes(
+        part, lm_config, mesh).poses)[:n]
+    res["nodes_ms"] = 1e3 * (time.perf_counter() - t0)
+    if mode == "gloo":
+        t0 = time.perf_counter()
+        res["edges"] = multihost.fetch_global(distributed.optimize_sharded(
+            snap, lm_config, mesh).poses)[:n]
+        res["edges_ms"] = 1e3 * (time.perf_counter() - t0)
+        fan = multihost.fetch_global(distributed.branch_bound_fanout(
+            *fan_args, mesh=mesh, **fan_kw))
+        res.update(fan_found=fan.pose_found, fan_pose=fan.estimated_pose,
+                   fan_score=fan.normalized_score)
+    res.update(psum_calls=mesh.psum_calls, psum_bytes=mesh.psum_bytes)
+    torch.distributed.destroy_process_group()
+    if rank == 0:
+        np.savez(out, **res)
+    print(f"mesh worker {mode} rank {rank}: ok", flush=True)
+    return 0
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def phase_mesh_processes(torch, dev, workdir, slam4, fanout):
+    """(c) Two processes under gloo, one shard each on card 0, and one
+    process of world size 1 under NCCL, all at once, each with a timeout.
+    Their results must agree with the same calls over an in-process mesh
+    of as many shards: node-sharded poses within 0.02 m in x and y, the
+    edge-sharded within 1e-3 (the CPU tests' tolerances), the fan-out's
+    found flags equal, poses within 1e-4 and scores rtol 1e-5."""
+    from my_lidar_graph_slam_tpu_torch.parallel import distributed, multihost
+    from my_lidar_graph_slam_tpu_torch.parallel.mesh import Mesh
+
+    graph_path, fan_path = save_mesh_inputs(torch, workdir, slam4, fanout)
+    cfg = json.dumps(vars(slam4.backend.lm_config))
+    outs = {m: os.path.join(workdir, f"mesh_{m}.npz")
+            for m in ("gloo", "nccl")}
+    gloo_port, nccl_port = free_port(), free_port()
+    cmds = [["gloo", r, 2, gloo_port] for r in range(2)] + \
+        [["nccl", 0, 1, nccl_port]]
+    logs = [os.path.join(workdir, f"mesh_worker{i}.log")
+            for i in range(len(cmds))]
+    t0 = time.perf_counter()
+    procs = []
+    for c, path in zip(cmds, logs):
+        with open(path, "w") as f:
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--mesh-worker",
+                 *map(str, c), graph_path, fan_path, outs[c[0]], cfg],
+                cwd=REPO, stdout=f, stderr=subprocess.STDOUT))
+    # All end, or one fails or the time runs out and every one is killed.
+    deadline = time.monotonic() + MESH_WORKER_TIMEOUT_S
+    while any(p.poll() is None for p in procs):
+        if time.monotonic() > deadline or \
+                any(p.poll() not in (None, 0) for p in procs):
+            for p in procs:
+                p.kill()
+            break
+        time.sleep(0.2)
+    for p in procs:
+        p.wait()
+    wall = time.perf_counter() - t0
+    for c, p, path in zip(cmds, procs, logs):
+        if p.returncode != 0:
+            raise AssertionError(f"phase 11(c) process {c[:2]} failed "
+                                 f"({p.returncode}):\n"
+                                 f"{open(path).read()[-3000:]}")
+
+    snap, n, fan_args, fan_kw = load_mesh_inputs(torch, graph_path,
+                                                 fan_path, dev)
+    lm_config = slam4.backend.lm_config
+    stats = {"processes_wall_s": wall}
+    for mode, shards in (("gloo", 2), ("nccl", 1)):
+        mesh = Mesh(devices=[dev] * shards)
+        got = np.load(outs[mode])
+        ref = multihost.fetch_global(distributed.optimize_sharded_nodes(
+            distributed.partition_graph_by_nodes(snap, shards), lm_config,
+            mesh).poses)[:n]
+        errs = {"nodes": float(np.abs(got["nodes"][:, :2] -
+                                      ref[:, :2]).max())}
+        if mode == "gloo":
+            ref_e = multihost.fetch_global(distributed.optimize_sharded(
+                snap, lm_config, mesh).poses)[:n]
+            errs["edges"] = float(np.abs(got["edges"] - ref_e).max())
+            fan = multihost.fetch_global(distributed.branch_bound_fanout(
+                *fan_args, mesh=mesh, **fan_kw))
+            if not np.array_equal(got["fan_found"], fan.pose_found):
+                raise AssertionError("phase 11(c): the gloo fan-out found "
+                                     "other rows than the in-process mesh")
+            errs["fan_pose"] = float(np.abs(got["fan_pose"] -
+                                            fan.estimated_pose).max())
+            errs["fan_score_rel"] = float(np.max(
+                np.abs(got["fan_score"] - fan.normalized_score) /
+                np.maximum(np.abs(fan.normalized_score), 1e-30)))
+            stats["fan_rows"] = int(fan.pose_found.size)
+            stats["fan_found"] = int(fan.pose_found.sum())
+        stats[mode] = {"shards": shards, "max_err": errs,
+                       "nodes_ms": float(got["nodes_ms"]),
+                       "edges_ms": float(got["edges_ms"])
+                       if "edges_ms" in got else None,
+                       "psum_calls": int(got["psum_calls"]),
+                       "psum_bytes": int(got["psum_bytes"])}
+        limits = {"nodes": 0.02, "edges": 1e-3, "fan_pose": 1e-4,
+                  "fan_score_rel": 1e-5}
+        for key, err in errs.items():
+            if not err <= limits[key]:
+                raise AssertionError(f"phase 11(c) {mode}: {key} differs "
+                                     f"from the in-process mesh by {err}")
+    log("  " + json.dumps(stats))
+    return stats
+
+
+# --------------------------------------------------------------------------
 # Phase 5: times
 # --------------------------------------------------------------------------
 
@@ -1552,12 +1961,12 @@ def main() -> int:
 
     smi = smi_line()
     kind = torch.cuda.get_device_name(0)
-    log(f"[1/10] device: {smi} | torch {torch.__version__} cuda "
+    log(f"[1/11] device: {smi} | torch {torch.__version__} cuda "
         f"{torch.version.cuda} | {kind}")
 
     t0 = time.perf_counter()
     loader.build_all()
-    log(f"[2/10] build: {time.perf_counter() - t0:.2f} s")
+    log(f"[2/11] build: {time.perf_counter() - t0:.2f} s")
     for name, text in loader.ptxas_report.items():
         for line in text.splitlines():
             if "registers" in line or "spill" in line:
@@ -1570,49 +1979,64 @@ def main() -> int:
         # beam capacity for NB.
         dev = torch.device("cuda")
         errs = phase_kernels(torch, dev, 1024)
-        log(f"[3/10] kernels vs plain: ok in {time.perf_counter() - t0:.1f} s")
+        log(f"[3/11] kernels vs plain: ok in {time.perf_counter() - t0:.1f} s")
 
         t0 = time.perf_counter()
         stats, rec, slam, records, truth = phase_slice(torch, dev, workdir)
-        log(f"[4/10] slice: ok in {time.perf_counter() - t0:.1f} s")
+        log(f"[4/11] slice: ok in {time.perf_counter() - t0:.1f} s")
 
         t0 = time.perf_counter()
         launcher_stats, rec6 = phase_launcher(torch, workdir)
-        log(f"[6/10] launcher, robust settings, replay: ok in "
+        log(f"[6/11] launcher, robust settings, replay: ok in "
             f"{time.perf_counter() - t0:.1f} s")
 
         t0 = time.perf_counter()
         async_stats, rec7 = phase_async(torch, dev, records)
-        log(f"[7/10] async against blocking: ok in "
+        log(f"[7/11] async against blocking: ok in "
             f"{time.perf_counter() - t0:.1f} s")
 
         t0 = time.perf_counter()
         bb_stats, rec8 = phase_bb_frontend(torch, dev, workdir)
-        log(f"[8/10] bb_frontend settings, online: ok in "
+        log(f"[8/11] bb_frontend settings, online: ok in "
             f"{time.perf_counter() - t0:.1f} s")
 
         t0 = time.perf_counter()
         solver_stats, rec9 = phase_solver(torch, dev, slam, records, *truth)
-        log(f"[9/10] device pose-graph solver: ok in "
+        log(f"[9/11] device pose-graph solver: ok in "
             f"{time.perf_counter() - t0:.1f} s")
 
         t0 = time.perf_counter()
         rtc_stats, rec10 = phase_correlative(torch, dev, workdir)
-        log(f"[10a/10] correlative loop detector, launcher: ok in "
+        log(f"[10a/11] correlative loop detector, launcher: ok in "
             f"{time.perf_counter() - t0:.1f} s")
         t0 = time.perf_counter()
         pruned_stats, rec10b = phase_pruned(torch, dev, records)
-        log(f"[10b/10] pruned frontend against the sweep: ok in "
+        log(f"[10b/11] pruned frontend against the sweep: ok in "
             f"{time.perf_counter() - t0:.1f} s")
         t0 = time.perf_counter()
         reader_stats = phase_native_reader(workdir)
-        log(f"[10c/10] native CARMEN reader: ok in "
+        log(f"[10c/11] native CARMEN reader: ok in "
             f"{time.perf_counter() - t0:.1f} s")
+
+        t11 = t0 = time.perf_counter()
+        mesh_solver_rows = phase_mesh_solvers(torch, dev, slam)
+        log(f"[11a/11] sharded solvers over {MESH_SHARDS} shards of the "
+            f"card: ok in {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        mesh_stats, rec11, fanout = phase_mesh_launcher(torch, workdir)
+        log(f"[11b/11] launcher with a mesh: ok in "
+            f"{time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        process_stats = phase_mesh_processes(torch, dev, workdir, slam,
+                                             fanout)
+        log(f"[11c/11] gloo and NCCL processes: ok in "
+            f"{time.perf_counter() - t0:.1f} s (phase 11: "
+            f"{time.perf_counter() - t11:.1f} s)")
 
     t0 = time.perf_counter()
     sources = [("slice", rec), ("launcher", rec6), ("async", rec7),
                ("bb_frontend", rec8), ("device_solver", rec9),
-               ("correlative", rec10), ("pruned", rec10b)]
+               ("correlative", rec10), ("pruned", rec10b), ("mesh", rec11)]
     rows = phase_times(torch, sources, slam, errs)
     for r in rows:
         lib = "n/a" if r["library_ms"] is None else \
@@ -1628,13 +2052,16 @@ def main() -> int:
             f"{r['launches']} launches {json.dumps(r['launches_by_phase'])}"
             f", inputs of the {r['phase']} run, max|err| vs plain "
             f"{r['max_abs_err']:.3g} {json.dumps(r['shape'])}")
-    log(f"[5/10] times: ok in {time.perf_counter() - t0:.1f} s")
+    log(f"[5/11] times: ok in {time.perf_counter() - t0:.1f} s")
 
     print(json.dumps({"kernels": rows, "slice": stats,
                       "launcher": launcher_stats, "async": async_stats,
                       "bb_frontend": bb_stats, "solver": solver_stats,
                       "correlative": rtc_stats, "pruned": pruned_stats,
-                      "native_reader": reader_stats}))
+                      "native_reader": reader_stats,
+                      "mesh": {"solvers": mesh_solver_rows,
+                               "launcher": mesh_stats,
+                               "processes": process_stats}}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
@@ -1643,4 +2070,7 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--mesh-worker"]:
+        sys.path.insert(0, REPO)
+        sys.exit(mesh_worker(sys.argv[2:]))
     sys.exit(main())

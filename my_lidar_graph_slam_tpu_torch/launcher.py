@@ -16,8 +16,14 @@ of the JAX launcher and prints the same stats line on stderr.
 The maps live on the CUDA card unless ``--platform cpu`` is given. Every
 CUDA kernel is built before the timed loop, so ``nvcc`` never lands in
 ``elapsed_s``. ``--profile DIR`` writes a ``torch.profiler`` trace of the
-scan loop. ``--multihost`` and ``--mesh-devices`` need the parallel layer,
-which is not ported yet (ROADMAP Queue 1 item 7): they raise.
+scan loop. ``--mesh-devices N`` runs the backend over a mesh of N shards
+in this process (the first N cards, or N CPU shards under ``--platform
+cpu``); ``--multihost`` joins a ``torch.distributed`` process group from
+``torchrun``'s variables (NCCL with one card per process, gloo under
+``--platform cpu``) and spans the mesh over every process, each running
+the whole launcher on the same log. With a mesh the backend solves every
+graph with the node-sharded LM and the BranchBound detector runs
+branch-and-bound fanned out over the shards (``parallel/``).
 """
 
 from __future__ import annotations
@@ -38,8 +44,6 @@ from my_lidar_graph_slam_tpu_torch.utils import ate
 from my_lidar_graph_slam_tpu_torch.utils import config as config_mod
 from my_lidar_graph_slam_tpu_torch.utils import device as device_mod
 from my_lidar_graph_slam_tpu_torch.utils.metrics import MetricManager
-
-PARALLEL_ITEM = "ROADMAP Queue 1 item 7 (parallel)"
 
 
 def resolve_platform(platform: str) -> torch.device:
@@ -131,12 +135,46 @@ def run(log_path: str, settings_path: str, output: str,
     """Run the full pipeline; returns the stats dictionary of the JAX
     launcher (``num_scans``, ``num_nodes``, ``num_edges``,
     ``num_loop_closures``, ``elapsed_s``, ``scans_per_s`` and, with
-    ``gt_path``, ``ate_rmse_m``)."""
-    if multihost or mesh_devices:
-        raise NotImplementedError(
-            "--multihost and --mesh-devices need the parallel layer, which "
-            f"is not ported yet: {PARALLEL_ITEM}")
+    ``gt_path``, ``ate_rmse_m``).
+
+    ``multihost`` joins the process group (``parallel/multihost.py``,
+    coordinator and ranks from torchrun's variables) and spans the mesh
+    over every process's device; the backend then runs synchronously,
+    since every rank must reach the backend's collectives in the same
+    order, which a worker thread's timing does not promise. The group is
+    left at the end. ``mesh_devices`` > 0 builds a one-process mesh over
+    N local shards instead."""
     device = resolve_platform(platform)
+    opts = dict(max_scans=max_scans, gui_interval=gui_interval,
+                gt_path=gt_path, save_local_maps=save_local_maps,
+                save_pyramid_maps=save_pyramid_maps, profile_dir=profile_dir,
+                replay_chunk=replay_chunk, attach_odom=attach_odom,
+                warmup=warmup, stream_async=stream_async)
+    if not multihost:
+        mesh = None
+        if mesh_devices:
+            from my_lidar_graph_slam_tpu_torch.parallel import mesh as mesh_mod
+            mesh = mesh_mod.make_mesh(mesh_devices, axis="shard",
+                                      device=device)
+        return _run(log_path, settings_path, output, device, mesh,
+                    threaded_backend, **opts)
+    import torch.distributed as dist
+
+    from my_lidar_graph_slam_tpu_torch.parallel import multihost as mh
+    mh.initialize(device=device)
+    try:
+        return _run(log_path, settings_path, output, device,
+                    mh.global_mesh("shard", device=device), False, **opts)
+    finally:
+        dist.destroy_process_group()
+
+
+def _run(log_path, settings_path, output, device, mesh, threaded_backend, *,
+         max_scans, gui_interval, gt_path, save_local_maps,
+         save_pyramid_maps, profile_dir, replay_chunk, attach_odom, warmup,
+         stream_async) -> dict:
+    """The pipeline of :func:`run` on ``device``, with the backend over
+    ``mesh`` when it is not None."""
     metrics = MetricManager.instance()
     cfg = config_mod.load(settings_path)
     if replay_chunk:
@@ -144,7 +182,8 @@ def run(log_path: str, settings_path: str, output: str,
         # to chunk boundaries (models/replay.py).
         threaded_backend = False
     slam_obj = config_mod.create_slam(cfg, device=device,
-                                      threaded_backend=threaded_backend)
+                                      threaded_backend=threaded_backend,
+                                      mesh=mesh)
     if stream_async:
         slam_obj.frontend.async_pipeline = True
 
@@ -168,7 +207,7 @@ def run(log_path: str, settings_path: str, output: str,
               file=sys.stderr)
         t0 = time.time()
         warm_obj = config_mod.create_slam(cfg, device=device,
-                                          threaded_backend=False)
+                                          threaded_backend=False, mesh=mesh)
         warm_scans = scan_records[:warmup]
         if replay_chunk:
             ReplayRunner(warm_obj, chunk=replay_chunk).run(warm_scans)
@@ -306,11 +345,10 @@ def main(argv=None):
     parser.add_argument("--save-pyramid-maps", action="store_true",
                         help="dump the first local map's coarse pyramid")
     parser.add_argument("--multihost", action="store_true",
-                        help="span the backend over several processes "
-                             f"(not ported yet: {PARALLEL_ITEM})")
+                        help="initialize torch.distributed and span the "
+                             "backend mesh across all processes")
     parser.add_argument("--mesh-devices", type=int, default=0,
-                        help="backend over N local devices (not ported "
-                             f"yet: {PARALLEL_ITEM})")
+                        help="single-process mesh over N local devices")
     parser.add_argument("--profile", default="",
                         help="write a torch.profiler trace of the scan "
                              "loop to this directory")

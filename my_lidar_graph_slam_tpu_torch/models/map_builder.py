@@ -11,9 +11,11 @@ rebuilt, all of them in stacked batches (grid_map_builder.cpp:62-80,
 Scan arrays for all pose-graph nodes live on the host in a
 :class:`ScanStore`; each device step uploads the rows it needs. Replay
 mode integrates a chunk of nodes at once (:meth:`GridMapBuilder.
-append_scans_chunk`). Each local map caches its occupancy values and the
-correlative loop detector's windowed-max coarse map; the branch-and-bound
-pyramid cache and the TPU tile caches have no counterpart here.
+append_scans_chunk`). Each local map caches its occupancy values, the
+correlative loop detector's windowed-max coarse map and the
+branch-and-bound pyramid of the mesh detector
+(:meth:`GridMapBuilder.pyramid_for`); the TPU tile caches have no
+counterpart here.
 """
 
 from __future__ import annotations
@@ -27,6 +29,7 @@ import torch
 
 from my_lidar_graph_slam_tpu_torch.models.pose_graph import PoseGraph
 from my_lidar_graph_slam_tpu_torch.ops import grid as gridops
+from my_lidar_graph_slam_tpu_torch.ops import pyramid as pyrops
 from my_lidar_graph_slam_tpu_torch.ops import raycast
 from my_lidar_graph_slam_tpu_torch.sensor.data import RawScan
 from my_lidar_graph_slam_tpu_torch.utils import device as device_mod
@@ -124,6 +127,9 @@ class LocalMap:
     # The correlative detector's coarse map: (low_resolution, f32[H, W],
     # grid_version at build time), see ops/correlative_coarse.py.
     coarse: Optional[tuple] = None
+    # The branch-and-bound pyramid f32[H + 1, size, size], see
+    # pyramid_for.
+    pyramid: Optional[torch.Tensor] = None
     # Node poses the current grid contents were integrated at; lets
     # after_loop_closure skip maps whose optimized poses barely moved.
     built_poses: Optional[np.ndarray] = None
@@ -177,9 +183,10 @@ class GridMapBuilder:
         return torch.from_numpy(np.ascontiguousarray(arr)).to(self.device)
 
     def _grid_changed(self, lm: LocalMap):
-        """Drop what was derived from ``lm.grid``: the occupancy values, and
-        with ``refresh_coarse_maps`` the coarse map."""
+        """Drop what was derived from ``lm.grid``: the occupancy values, the
+        pyramid, and with ``refresh_coarse_maps`` the coarse map."""
         lm.values = None
+        lm.pyramid = None
         lm.grid_version += 1
         if self.refresh_coarse_maps:
             lm.coarse = None
@@ -513,3 +520,13 @@ class GridMapBuilder:
         if lm.values is None:
             lm.values = gridops.values(lm.grid)
         return lm.values
+
+    def pyramid_for(self, lm: LocalMap, height_max: int) -> torch.Tensor:
+        """Lazily build + cache a local map's branch-and-bound pyramid
+        (the mPrecomputedMaps cache, loop_detector_branch_bound.cpp:52-60;
+        ``pyramid_for`` of the JAX package). 7 levels of a 1536^2 map hold
+        66 MB per finished map."""
+        if lm.pyramid is None or lm.pyramid.shape[0] != height_max + 1:
+            lm.pyramid = pyrops.build_pyramid(self.values_for(lm),
+                                              height_max)
+        return lm.pyramid

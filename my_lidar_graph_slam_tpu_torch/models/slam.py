@@ -15,8 +15,8 @@ frontend match, through a CUDA event on a page-locked copy.
 Replay mode (``models/replay.py``) drives the same objects and calls
 ``Backend.run_once`` with a window of nodes. The backend solves graphs
 below ``host_solver_max_nodes`` on the host and larger ones with the
-device solver (``models/optimizer_lm.py``) on the SLAM's device. Not
-ported yet: the mesh.
+device solver (``models/optimizer_lm.py``) on the SLAM's device; with a
+mesh, every graph with the node-sharded solver of ``parallel/``.
 """
 
 from __future__ import annotations
@@ -172,22 +172,41 @@ class Backend:
     sparse LM, the Eigen-equivalent direct path); larger ones with the
     device LM solver (matrix-free PCG) on ``device`` (``None`` means
     ``cuda``), as ``slam.py:214-224`` of the JAX package does without a
-    mesh. There is no fallback between the two: a device failure raises.
+    mesh. With ``mesh`` (``parallel/mesh.py``) every graph, at any node
+    count, solves with the node-sharded LM
+    (``distributed.optimize_sharded_nodes``) and the detector, where it
+    has a ``mesh`` field (``LoopDetectorBranchBound``), fans its candidate
+    rows out over the mesh. There is no fallback between the paths: a
+    device or collective failure raises.
     """
 
     def __init__(self, searcher: lc.LoopSearcherNearest, detector,
                  lm_config: optimizer_host.LMConfig,
-                 host_solver_max_nodes: int = 2048, device=None):
+                 host_solver_max_nodes: int = 2048, device=None, mesh=None):
         self.searcher = searcher
         self.detector = detector
         self.lm_config = lm_config
         self.host_solver_max_nodes = host_solver_max_nodes
         self.device = device
+        self.mesh = mesh
         self.num_loop_closures = 0
         self.num_loop_edges = 0
         self.num_device_solves = 0
+        self.num_sharded_solves = 0
+        if mesh is not None and hasattr(detector, "mesh"):
+            detector.mesh = mesh
 
     def _optimize(self, snapshot):
+        """The solver's result, its poses f32[>= N_cap, 3] on the host."""
+        if self.mesh is not None:
+            from my_lidar_graph_slam_tpu_torch.parallel import (distributed,
+                                                                multihost)
+            sharded = distributed.partition_graph_by_nodes(
+                snapshot, self.mesh.num_shards)
+            res = distributed.optimize_sharded_nodes(sharded, self.lm_config,
+                                                     self.mesh)
+            self.num_sharded_solves += 1
+            return res._replace(poses=multihost.fetch_global(res.poses))
         if snapshot.num_nodes < self.host_solver_max_nodes:
             return optimizer_host.optimize_host(snapshot, self.lm_config)
         res = optimizer_lm.optimize(snapshot, self.lm_config, self.device)
@@ -229,9 +248,10 @@ class Backend:
 
         # Snapshot + node count are taken ATOMICALLY (the reference
         # snapshots under its mutex, lidar_graph_slam.cpp:52-65).
+        n_dev = 1 if self.mesh is None else self.mesh.num_shards
         with slam._lock:
             snapshot = slam.graph.snapshot(
-                edge_cap=_round_capacity(slam.graph.num_edges))
+                edge_cap=_round_multiple(slam.graph.num_edges, n_dev))
             optimized_count = slam.graph.num_nodes
         t0 = time.time()
         res = self._optimize(snapshot)
@@ -273,10 +293,14 @@ def _dump_error_histogram(snapshot, poses_opt, metrics):
         hist.observe(float(v))
 
 
-def _round_capacity(n: int, minimum: int = 64) -> int:
+def _round_multiple(n: int, k: int, minimum: int = 64) -> int:
+    """Power-of-two edge capacity, rounded up to a multiple of ``k``
+    (the mesh's shard count; ``_round_multiple`` of the JAX package)."""
     cap = minimum
     while cap < n:
         cap *= 2
+    if cap % k:
+        cap += k - cap % k
     return cap
 
 

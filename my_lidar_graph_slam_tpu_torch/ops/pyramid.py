@@ -10,8 +10,10 @@ far edges — the semantics of ``PrecomputeGridMap``
 :func:`windowed_max` is ``max_pool2d`` with stride 1 on a map zero-padded
 at its far edges; :func:`build_pyramid` doubles the window per level with
 two shifted maxima, as the JAX package does. Max is exact, so both equal
-the JAX package's levels bit for bit. Only the launcher's
-``--save-pyramid-maps`` uses them in the port.
+the JAX package's levels bit for bit. The branch-and-bound matchers read
+them: the frontend's, and the mesh loop detector's through
+``GridMapBuilder.pyramid_for``; so does the launcher's
+``--save-pyramid-maps``.
 """
 
 from __future__ import annotations

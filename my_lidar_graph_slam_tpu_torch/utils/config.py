@@ -236,11 +236,18 @@ def create_optimizer_config(root: Config, optimizer_type: str,
 
 
 def create_slam(root: Config, device=None,
-                threaded_backend: bool = False) -> slam.LidarGraphSlam:
+                threaded_backend: bool = False,
+                mesh=None) -> slam.LidarGraphSlam:
     """CreateLidarGraphSlam (slam_launcher.cpp:846-876): the full object
     graph from one settings tree. Maps live on ``device``: ``cuda`` unless
-    the caller asks for ``"cpu"``; without a card a CUDA device raises."""
+    the caller asks for ``"cpu"``; without a card a CUDA device raises.
+    ``mesh`` (``parallel/mesh.py``, on the same kind of device): the
+    backend then solves with the node-sharded LM and the BranchBound
+    detector fans its candidate rows out over the mesh."""
     dev = device_mod.resolve(device)
+    if mesh is not None and mesh.devices[0].type != dev.type:
+        raise ValueError(f"a mesh on {mesh.devices[0].type} for a SLAM on "
+                         f"{dev.type}")
     top = root.group("LidarGraphSlam") if root.get("LidarGraphSlam") \
         else Config({})
 
@@ -311,7 +318,8 @@ def create_slam(root: Config, device=None,
         root,
         be.get("LoopDetectorType", "GridSearch"),
         be.get("LoopDetectorConfigGroup", "LoopDetectorGridSearch"))
-    backend = slam.Backend(searcher, detector, lm_cfg, device=dev)
+    backend = slam.Backend(searcher, detector, lm_cfg, device=dev,
+                           mesh=mesh)
 
     return slam.LidarGraphSlam(frontend, backend, builder, PoseGraph(),
                                threaded_backend=threaded_backend)

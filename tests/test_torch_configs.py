@@ -106,7 +106,7 @@ def test_every_ported_jax_detector_is_accepted(detector):
     _same_component(t, j)
 
 
-def test_correlative_loop_detector_is_not_ported_yet():
+def test_correlative_loop_detector_builds_as_in_jax():
     """The RealTimeCorrelative loop detector, the last of the JAX
     factories' strategies to be ported, now builds as the JAX package's
     does, with ``Tpu.CorrelativeRefineBlocks``, and in a whole SLAM on the

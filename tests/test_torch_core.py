@@ -282,7 +282,7 @@ def test_map_entry_points_default_to_cuda(make):
             fn()
 
 
-def test_unported_strategies_raise():
+def test_every_strategy_builds_and_unknown_types_raise():
     """No strategy of the JAX factories is left to port (the
     RealTimeCorrelative loop detector was the last); an unknown type is a
     ValueError."""

@@ -517,3 +517,80 @@ def test_counting_integration_on_the_card_is_bit_equal(dev):
     assert torch.equal(card.hits.cpu(), cpu.hits)
     assert torch.equal(card.counts.cpu(), cpu.counts)
     assert float(cpu.hits.sum()) > 500
+
+
+# --------------------------------------------------------------------------
+# The parallel layer: two shards on the one card
+# --------------------------------------------------------------------------
+
+
+def _card_mesh(dev, n=2):
+    from my_lidar_graph_slam_tpu_torch.parallel import mesh
+
+    return mesh.Mesh(devices=[dev] * n)
+
+
+@pytest.mark.parametrize("solver", ["edges", "nodes"])
+def test_sharded_solvers_on_the_card_match_the_cpu(dev, solver):
+    """The edge- and node-sharded LM over ``Mesh([cuda:0] * 2)`` against
+    the same solve over two CPU shards (poses atol 1e-3: float atomics
+    reorder the card's sums), on a 256-node ring with 4 loop edges."""
+    from my_lidar_graph_slam_tpu_torch.io import synth
+    from my_lidar_graph_slam_tpu_torch.models import optimizer_lm
+    from my_lidar_graph_slam_tpu_torch.parallel import distributed, mesh
+    from my_lidar_graph_slam_tpu_torch.parallel import multihost
+
+    graph, _ = synth.ring_graph(256, seed=0, n_loops=4)
+    snap = graph.snapshot(edge_cap=512)
+    cfg = optimizer_lm.LMConfig(solver="cg", cg_max_iterations=64)
+
+    def solve(m):
+        if solver == "edges":
+            return distributed.optimize_sharded(snap, cfg, m)
+        return distributed.optimize_sharded_nodes(
+            distributed.partition_graph_by_nodes(snap, 2), cfg, m)
+
+    ref = solve(mesh.make_mesh(2, device="cpu"))
+    card = _card_mesh(dev)
+    got = solve(card)
+    poses = multihost.fetch_global(got.poses)
+    assert card.psum_calls > 0
+    np.testing.assert_allclose(poses[:256], multihost.fetch_global(
+        ref.poses)[:256], rtol=0, atol=1e-3)
+    assert got.iterations == ref.iterations
+
+
+def test_fanout_on_the_card_launches_k2_and_matches_the_cpu(dev):
+    """The branch-and-bound fan-out of two rows (the search scene's scan
+    and an all-invalid padded row) over two shards of the card: K2 once
+    per shard, the same rows as over two CPU shards."""
+    from my_lidar_graph_slam_tpu_torch.ops import grid as gridops
+    from my_lidar_graph_slam_tpu_torch.ops import matchers, pyramid
+    from my_lidar_graph_slam_tpu_torch.parallel import distributed, mesh
+    from my_lidar_graph_slam_tpu_torch.parallel import multihost
+
+    g, poses, scan = _search_scene()
+    rows = {k: torch.cat([v, torch.zeros_like(v)]) for k, v in scan.items()}
+    rows["num_total_beams"][1] = 1.0
+    pyr = pyramid.build_pyramid(gridops.values(g), 4)
+
+    def run(m, d):
+        gd = gridops.GridMap(*(_to(x, d) for x in g))
+        return multihost.fetch_global(distributed.branch_bound_fanout(
+            pyr.to(d), gd, torch.cat([poses, poses]), rows["ranges"],
+            rows["angles"], rows["valid"], rows["scan_min_range"],
+            rows["scan_max_range"], rows["rel_sensor_poses"],
+            rows["num_total_beams"], 12.0, 0.5, 0.01, 12.0, 0.3, mesh=m,
+            node_height_max=4, win_x=10, win_y=10,
+            win_theta_max=matchers.static_max_theta_window(0.05, 12.0, 0.5)))
+
+    ref = run(mesh.make_mesh(2, device="cpu"), torch.device("cpu"))
+    before = greedy_cost.greedy_cost_core.launches
+    got = run(_card_mesh(dev), dev)
+    assert greedy_cost.greedy_cost_core.launches == before + 2
+    assert got.pose_found.tolist() == ref.pose_found.tolist() == [True,
+                                                                  False]
+    np.testing.assert_allclose(got.estimated_pose, ref.estimated_pose,
+                               rtol=0, atol=1e-4)
+    np.testing.assert_allclose(got.normalized_score, ref.normalized_score,
+                               rtol=1e-3, atol=1e-4)

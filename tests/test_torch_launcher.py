@@ -45,6 +45,7 @@ from my_lidar_graph_slam_tpu_torch.models import loop_closure as tlc
 from my_lidar_graph_slam_tpu_torch.models import map_builder as tmb
 from my_lidar_graph_slam_tpu_torch.models.pose_graph import PoseGraph as TGraph
 from my_lidar_graph_slam_tpu_torch.ops import pyramid as tpyramid
+from my_lidar_graph_slam_tpu_torch.parallel import distributed as tdist
 from my_lidar_graph_slam_tpu_torch.sensor.data import RawScan as TRawScan
 from my_lidar_graph_slam_tpu_torch.utils import ate as tate
 from my_lidar_graph_slam_tpu_torch.utils import metrics as tmetrics
@@ -318,14 +319,47 @@ def _flags(main):
     return set(re.findall(r"--[a-z][a-z-]+", out.getvalue()))
 
 
-def test_launcher_takes_every_jax_flag(monkeypatch):
+def test_launcher_takes_every_jax_flag(monkeypatch, launcher_runs,
+                                      tmp_path):
+    """Every flag of the JAX launcher; ``--mesh-devices 8`` under
+    ``--platform cpu`` runs the small settings' log with the node-sharded
+    solve at every closure and the branch-and-bound fan-out detector (no
+    sweep), and ``--multihost`` without a coordinator raises."""
     monkeypatch.setattr(sys, "argv", ["launcher", "--help"])
     ref = _flags(jlauncher.main)
     got = _flags(lambda: tlauncher.main(["--help"]))
     assert got == ref
-    for kw in (dict(multihost=True), dict(mesh_devices=4)):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-            tlauncher.run("log", ROBUST, "out", platform="cpu", **kw)
+    tmp, _, _ = launcher_runs
+    calls = {"solves": 0, "fanouts": 0, "sweeps": 0}
+
+    def count(key, fn):
+        def counted(*a, **kw):
+            calls[key] += 1
+            return fn(*a, **kw)
+        return counted
+
+    bb = tlc.LoopDetectorBranchBound
+    monkeypatch.setattr(tdist, "optimize_sharded_nodes",
+                        count("solves", tdist.optimize_sharded_nodes))
+    monkeypatch.setattr(bb, "_detect_fanout",
+                        count("fanouts", bb._detect_fanout))
+    monkeypatch.setattr(bb, "_detect_multi", count("sweeps", bb._detect_multi))
+    monkeypatch.setattr(bb, "_detect_single",
+                        count("sweeps", bb._detect_single))
+    tmetrics.MetricManager.reset_instance()
+    stats = tlauncher.run(str(tmp / "mini.clf"), str(tmp / "settings.json"),
+                          str(tmp_path / "mesh"), platform="cpu",
+                          mesh_devices=8, threaded_backend=False,
+                          gt_path=str(tmp / "gt.npz"))
+    assert stats["num_loop_closures"] >= 1
+    assert calls["solves"] == stats["num_loop_closures"]
+    assert calls["fanouts"] >= 1 and calls["sweeps"] == 0
+    assert np.isfinite(stats["ate_rmse_m"])
+    assert os.path.exists(str(tmp_path / "mesh.ckpt.npz"))
+    for var in ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK"):
+        monkeypatch.delenv(var, raising=False)
+    with pytest.raises(ValueError, match="coordinator"):
+        tlauncher.run("log", ROBUST, "out", platform="cpu", multihost=True)
     assert tlauncher.resolve_platform("cpu").type == "cpu"
     with pytest.raises(ValueError):
         tlauncher.resolve_platform("tpu")
