@@ -16,7 +16,8 @@ of the JAX launcher and prints the same stats line on stderr.
 The maps live on the CUDA card unless ``--platform cpu`` is given. Every
 CUDA kernel is built before the timed loop, so ``nvcc`` never lands in
 ``elapsed_s``. ``--profile DIR`` writes a ``torch.profiler`` trace of the
-scan loop. ``--mesh-devices N`` runs the backend over a mesh of N shards
+scan loop, with the program's spans in it as ``record_function`` ranges
+and in the metrics JSON's ``Spans`` (``utils/metrics.py``). ``--mesh-devices N`` runs the backend over a mesh of N shards
 in this process (the first N cards, or N CPU shards under ``--platform
 cpu``); ``--multihost`` joins a ``torch.distributed`` process group from
 ``torchrun``'s variables (NCCL with one card per process, gloo under

@@ -37,6 +37,7 @@ from my_lidar_graph_slam_tpu_torch.models import map_builder as mb
 from my_lidar_graph_slam_tpu_torch.models.pose_graph import PoseGraph
 from my_lidar_graph_slam_tpu_torch.ops import correlative_coarse
 from my_lidar_graph_slam_tpu_torch.ops import matchers, matchers_sweep
+from my_lidar_graph_slam_tpu_torch.utils import device as device_mod
 from my_lidar_graph_slam_tpu_torch.utils import se2
 from my_lidar_graph_slam_tpu_torch.utils.metrics import MetricManager
 
@@ -270,7 +271,8 @@ class LoopDetectorBranchBound:
             win_x=win_x, win_y=win_y, win_theta_max=win_t,
             greedy_params=self.greedy_params, score_gate="pixel_accurate",
             **self._sweep_args())
-        packed = matchers_sweep.pack_summary(summary).cpu().numpy()
+        packed = device_mod.sync(matchers_sweep.pack_summary(summary),
+                                 site="detect").numpy()
         results: List[LoopDetectionResult] = []
         _emit(results, graph, cand, packed)
         return results
@@ -301,9 +303,10 @@ class LoopDetectorBranchBound:
             num_total_beams=up(beams), win_x=win_x, win_y=win_y,
             win_theta_max=win_t, greedy_params=self.greedy_params,
             score_gate="pixel_accurate", **self._sweep_args())
-        packed = matchers_sweep.pack_summary(matchers.MatchSummary(*(
-            x.reshape((m * k,) + tuple(x.shape[2:])) for x in summary))
-        ).cpu().numpy().reshape(m, k, -1)
+        packed = device_mod.sync(matchers_sweep.pack_summary(
+            matchers.MatchSummary(*(x.reshape((m * k,) + tuple(x.shape[2:]))
+                                    for x in summary))),
+            site="detect").numpy().reshape(m, k, -1)
         results: List[LoopDetectionResult] = []
         for ci, cand in enumerate(candidates):
             _emit(results, graph, cand, packed[ci])
@@ -391,7 +394,7 @@ def _candidate_rows(graph: PoseGraph, st: mb.ScanStore,
 
 def _uploader(dev):
     def up(arr):
-        return torch.from_numpy(np.ascontiguousarray(arr)).to(dev)
+        return device_mod.upload(arr, dev, site="detect")
     return up
 
 
@@ -540,7 +543,8 @@ class LoopDetectorGridSearch:
                 num_total_beams=up(
                     np.maximum(st.raw_beams[ids], 1).astype(np.float32)),
                 nx=nx, ny=ny, nt=nt, greedy_params=self.greedy_params)
-            packed = matchers_sweep.pack_summary(summary).cpu().numpy()
+            packed = device_mod.sync(matchers_sweep.pack_summary(summary),
+                                     site="detect").numpy()
             _emit(results, graph, cand, packed)
         return results
 

@@ -143,7 +143,8 @@ def to_device(graph: GraphArrays, device) -> GraphArrays:
     f32, i64 = torch.float32, torch.int64
 
     def up(a, dtype):
-        return torch.as_tensor(np.asarray(a), device=device).to(dtype)
+        return device_mod.upload(np.asarray(a), device,
+                                 site="lm_graph").to(dtype)
 
     return GraphArrays(
         poses=up(graph.poses, f32), node_mask=up(graph.node_mask, torch.bool),
@@ -344,8 +345,9 @@ def _pcg(rhs, hv, precond, dot, max_iters: int, tol: float, agree=list):
                                             (rr_new, rr)))
         it = it + active[0].to(torch.int64)
         if step % CG_CHECK_EVERY == 0 or step == max_iters:
-            more, steps = agree(torch.stack(
-                [(rr[0] > thresh[0]).to(torch.int64), it]).tolist())
+            more, steps = agree(device_mod.sync(torch.stack(
+                [(rr[0] > thresh[0]).to(torch.int64), it]),
+                site="lm_cg").tolist())
             syncs += 1
             if not more:
                 break
@@ -409,7 +411,8 @@ def _lm(poses, node_mask, step, total_err, config: LMConfig, agree=list):
         prev = err
         syncs += 1
         if iters >= config.max_iterations or \
-                not agree([not bool(converged)])[0]:
+                not agree([not bool(device_mod.sync(
+                    converged, site="lm_step"))])[0]:
             break
     return poses, prev[0], iters, cg_steps, syncs
 

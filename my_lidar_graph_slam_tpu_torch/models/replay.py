@@ -28,6 +28,13 @@ keyframes at a time:
   a window of every node appended since the last pass
   (``Backend.run_once(window_nodes=...)``).
 
+* ``FrontendChunkTime`` is, on a card, the device's time from the start
+  of a chunk's first queued work (its uploads) to the end of its last
+  (the local-map integration), ``BackendPassTime`` the same for a
+  backend pass (its rebuilds last): CUDA event pairs read once
+  completed, without a sync (``MetricManager.device_timer``). On the CPU
+  both are the host's time for the same calls.
+
 As in the JAX package, there is no final backend pass after the last
 chunk (ROADMAP, faults in the reference), so closures signalled in the
 last chunk without a notify are not searched.
@@ -48,6 +55,7 @@ from my_lidar_graph_slam_tpu_torch.models.scan_matchers import \
 from my_lidar_graph_slam_tpu_torch.ops import grid as gridops
 from my_lidar_graph_slam_tpu_torch.ops import matchers_sweep, raycast
 from my_lidar_graph_slam_tpu_torch.sensor.data import RawScan
+from my_lidar_graph_slam_tpu_torch.utils import device as device_mod
 from my_lidar_graph_slam_tpu_torch.utils import se2
 from my_lidar_graph_slam_tpu_torch.utils.metrics import MetricManager
 
@@ -136,9 +144,9 @@ def replay_chunk(w_poses, w_active, w_ranges, w_angles, w_valid, w_rel,
     """
     dev = w_poses.device
     k = rel_from_update.shape[0]
-    half = torch.as_tensor(
+    half = device_mod.upload(
         0.5 * resolution * np.array([latest_size, latest_size], np.float32),
-        device=dev)
+        dev, site="replay_chunk")
     win_x, win_y, win_t = matcher._window(resolution)
     empty_lo = torch.zeros((latest_size, latest_size), dtype=torch.float32,
                            device=dev)
@@ -259,7 +267,7 @@ class ReplayRunner:
         dev = slam_obj.builder.device
 
         def up(arr):
-            return torch.from_numpy(np.ascontiguousarray(arr)).to(dev)
+            return device_mod.upload(arr, dev, site="replay_chunk")
 
         packed = replay_chunk(
             *(up(a) for a in self._window_arrays(scan_ids, nb)),
@@ -269,7 +277,7 @@ class ReplayRunner:
             self.matcher, bcfg.resolution, bcfg.prob_hit, bcfg.prob_miss,
             window=w, latest_size=bcfg.latest_map_size, max_steps=steps)
         # ONE transfer for the whole chunk.
-        out = packed.cpu().numpy()
+        out = device_mod.sync(packed, site="replay_chunk").numpy()
         MetricManager.instance().counters("FrontendMxuMatches").increment(k)
         return scan_ids, out[:, 0:3], out[:, 3:12].reshape(k, 3, 3), \
             out[:, 14] > 0.5
@@ -301,25 +309,24 @@ class ReplayRunner:
         i = 1
         while i < len(kfs):
             batch = kfs[i:i + self.chunk]
-            t0 = time.time()
-            scan_ids, est, cov, found = self._run_chunk(batch)
-            if not bool(np.all(found)):
-                raise RuntimeError("scan matching failed in replay chunk")
+            with metrics.device_timer("FrontendChunkTime", slam_obj.device):
+                scan_ids, est, cov, found = self._run_chunk(batch)
+                if not bool(np.all(found)):
+                    raise RuntimeError("scan matching failed in replay chunk")
 
-            # Nodes + odometry edges at the matched poses, as the per-scan
-            # frontend appends them.
-            first_node = slam_obj.graph.num_nodes
-            for t in range(len(batch)):
-                latest_pose = slam_obj.graph.latest_pose()
-                edge_rel = se2.inverse_compound_np(
-                    latest_pose, est[t].astype(np.float64))
-                slam_obj.append_odometry_node_and_edge(
-                    int(scan_ids[t]), edge_rel, cov[t].astype(np.float64))
+                # Nodes + odometry edges at the matched poses, as the
+                # per-scan frontend appends them.
+                first_node = slam_obj.graph.num_nodes
+                for t in range(len(batch)):
+                    latest_pose = slam_obj.graph.latest_pose()
+                    edge_rel = se2.inverse_compound_np(
+                        latest_pose, est[t].astype(np.float64))
+                    slam_obj.append_odometry_node_and_edge(
+                        int(scan_ids[t]), edge_rel,
+                        cov[t].astype(np.float64))
 
-            slam_obj.builder.append_scans_chunk(
-                slam_obj.graph, first_node, len(batch))
-            metrics.distributions("FrontendChunkTime").observe(
-                time.time() - t0)
+                slam_obj.builder.append_scans_chunk(
+                    slam_obj.graph, first_node, len(batch))
             metrics.counters("ReplayKeyframes").increment(len(batch))
 
             fe.process_count += len(batch)
@@ -328,14 +335,13 @@ class ReplayRunner:
                 # Coalesced pass at the chunk boundary (the condvar
                 # drop-while-busy semantics, lidar_graph_slam.cpp:447-456)
                 # over every node appended since the last pass.
-                t0 = time.time()
-                slam_obj.backend.run_once(
-                    slam_obj,
-                    window_nodes=range(last_pass_node + 1,
-                                       slam_obj.graph.num_nodes))
+                with metrics.device_timer("BackendPassTime",
+                                          slam_obj.device):
+                    slam_obj.backend.run_once(
+                        slam_obj,
+                        window_nodes=range(last_pass_node + 1,
+                                           slam_obj.graph.num_nodes))
                 last_pass_node = slam_obj.graph.num_nodes - 1
-                metrics.distributions("BackendPassTime").observe(
-                    time.time() - t0)
             if progress_cb is not None:
                 progress_cb(fe.process_count)
             i += len(batch)

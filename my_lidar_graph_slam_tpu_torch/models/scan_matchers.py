@@ -9,6 +9,8 @@ LinearSolver strategies over ``ops/matchers.py``. Every strategy matches
 through one pair of calls: ``match_async`` launches the match and starts
 ONE host copy of a packed [1, 16] result without waiting, and
 ``resolve_async`` waits for it; the blocking frontend resolves at once.
+The two are the ``frontend.match`` and ``frontend.resolve`` spans, and
+every upload and wait in them goes through ``utils/device.py``'s helpers.
 
 Default greedy-endpoint parameters replicate the launcher's *effective*
 configuration, including the swapped (scale, sigma) constructor arguments
@@ -32,6 +34,7 @@ import torch
 from my_lidar_graph_slam_tpu_torch.ops import grid as gridops
 from my_lidar_graph_slam_tpu_torch.ops import matchers, matchers_sweep
 from my_lidar_graph_slam_tpu_torch.ops import pyramid as pyrops
+from my_lidar_graph_slam_tpu_torch.utils import device as device_mod
 from my_lidar_graph_slam_tpu_torch.utils.metrics import MetricManager
 
 DEFAULT_GREEDY_PARAMS = (
@@ -76,7 +79,7 @@ def scan_tensors(store, scan_ids, device) -> dict:
     nb = store.beam_bucket()
 
     def up(arr):
-        return torch.from_numpy(np.ascontiguousarray(arr)).to(device)
+        return device_mod.upload(arr, device, site="scan_tensors")
 
     return dict(ranges=up(store.ranges[ids][:, :nb]),
                 angles=up(store.angles[ids][:, :nb]),
@@ -91,7 +94,10 @@ class AsyncMatcher:
     """``match_async``/``resolve_async`` over a strategy's
     ``_match_packed(grid, store, scan_ids, poses)``, which returns the
     packed f32[Q, 16] device result of matching stored scans at ``poses``
-    f32[Q, 3] against ``grid``."""
+    f32[Q, 3] against ``grid``. Each resolved match adds one to
+    ``FrontendMatches``, and one to ``FrontendFrontierOverflowMatches``
+    where its packed column 15 (branch-and-bound's frontier overflow) is
+    above 0."""
 
     def match_async(self, grid: gridops.GridMap, store, scan_id: int,
                     initial_pose) -> PendingMatch:
@@ -103,6 +109,22 @@ class AsyncMatcher:
         its own with ``non_blocking=True``, followed by a CUDA event.
         :meth:`resolve_async` waits on that event. On the CPU the copy is
         a plain one."""
+        with MetricManager.span("frontend.match"):
+            return self._start(grid, store, scan_id, initial_pose)
+
+    def resolve_async(self, pending: PendingMatch,
+                      initial_pose) -> matchers.MatchSummary:
+        """Wait for a :meth:`match_async` result and unpack it."""
+        with MetricManager.span("frontend.resolve"):
+            summary = self._finish(pending, initial_pose)
+        counters = MetricManager.instance().counters
+        counters("FrontendMatches").increment()
+        if summary.frontier_overflow > 0:
+            counters("FrontendFrontierOverflowMatches").increment()
+        return summary
+
+    def _start(self, grid: gridops.GridMap, store, scan_id: int,
+               initial_pose) -> PendingMatch:
         packed = self._match_packed(
             grid, store, [scan_id],
             np.asarray(initial_pose, np.float32)[None, :])
@@ -115,18 +137,17 @@ class AsyncMatcher:
         event.record(torch.cuda.current_stream(packed.device))
         return PendingMatch(host, event)
 
-    def resolve_async(self, pending: PendingMatch,
-                      initial_pose) -> matchers.MatchSummary:
-        """Wait for a :meth:`match_async` result and unpack it."""
-        if pending.event is not None:
-            pending.event.synchronize()
+    def _finish(self, pending: PendingMatch,
+                initial_pose) -> matchers.MatchSummary:
+        device_mod.sync(pending.event, site="resolve_async")
         out = unpack_summary(pending.host.numpy(),
                              np.asarray(initial_pose, np.float32)[None, :])
         return matchers.MatchSummary(*(leaf[0] for leaf in out))
 
 
 def _poses(poses, device) -> torch.Tensor:
-    return torch.as_tensor(np.asarray(poses, np.float32), device=device)
+    return device_mod.upload(np.asarray(poses, np.float32), device,
+                             site="poses")
 
 
 # The pruned path's expansion budgets: those of the JAX package's
@@ -216,21 +237,20 @@ class CorrelativeMatcher(AsyncMatcher):
             return self._sweep_packed(grid, store, scan_ids, poses)
         return self._pruned_packed(grid, store, scan_ids, poses)
 
-    def match_async(self, grid: gridops.GridMap, store, scan_id: int,
-                    initial_pose) -> PendingMatch:
-        pending = super().match_async(grid, store, scan_id, initial_pose)
+    def _start(self, grid: gridops.GridMap, store, scan_id: int,
+               initial_pose) -> PendingMatch:
+        pending = super()._start(grid, store, scan_id, initial_pose)
         if self.use_sweep:
             return pending
         poses = np.asarray(initial_pose, np.float32)[None, :]
         return pending._replace(retry=lambda: self._sweep_packed(
             grid, store, [scan_id], poses))
 
-    def resolve_async(self, pending: PendingMatch,
-                      initial_pose) -> matchers.MatchSummary:
+    def _finish(self, pending: PendingMatch,
+                initial_pose) -> matchers.MatchSummary:
         if pending.retry is None:
-            return super().resolve_async(pending, initial_pose)
-        if pending.event is not None:
-            pending.event.synchronize()
+            return super()._finish(pending, initial_pose)
+        device_mod.sync(pending.event, site="resolve_async")
         packed = pending.host.numpy()
         exact = bool(packed[0, 15] > 0.5)
         self.last_exact_fraction = 1.0 if exact else 0.0
@@ -240,7 +260,8 @@ class CorrelativeMatcher(AsyncMatcher):
         else:
             MetricManager.instance().counters(
                 "FrontendPrunedReruns").increment()
-            packed = pending.retry().cpu().numpy()
+            packed = device_mod.sync(pending.retry(),
+                                     site="pruned_retry").numpy()
         out = unpack_summary(packed,
                              np.asarray(initial_pose, np.float32)[None, :])
         return matchers.MatchSummary(*(leaf[0] for leaf in out))

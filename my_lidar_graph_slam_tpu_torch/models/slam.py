@@ -9,8 +9,16 @@ The backend runs either synchronously interleaved with the frontend
 (deterministic, used by tests and ``chip_smoke.py``) or on a worker thread
 like the reference's ``StartBackend`` (lidar_graph_slam.cpp:399-456). Both
 threads use the default CUDA stream and share ``LidarGraphSlam._lock``;
-every host read of a device result goes through ``.cpu()`` or, for a
-frontend match, through a CUDA event on a page-locked copy.
+every host read of a device result goes through ``utils/device.py::sync``
+(a ``.cpu()`` or, for a frontend match, a CUDA event on a page-locked
+copy), which counts it.
+
+Spans (``MetricManager.span``, recorded while a ``torch.profiler`` session
+is active): ``keyframe`` (a keyframe past the gate, its scan id as the
+keyframe), ``lock_wait`` (every acquisition of the lock, from asking to
+holding), ``backend.pass`` (its pass number as the keyframe),
+``backend.detect`` and ``backend.solve``; the matchers and the map
+builder add theirs.
 
 Replay mode (``models/replay.py``) drives the same objects and calls
 ``Backend.run_once`` with a window of nodes. The backend solves graphs
@@ -35,6 +43,7 @@ from my_lidar_graph_slam_tpu_torch.models.pose_graph import PoseGraph
 from my_lidar_graph_slam_tpu_torch.models.preprocess import (
     ScanAccumulator, ScanInterpolator)
 from my_lidar_graph_slam_tpu_torch.sensor.data import RawScan
+from my_lidar_graph_slam_tpu_torch.utils import device as device_mod
 from my_lidar_graph_slam_tpu_torch.utils import se2
 from my_lidar_graph_slam_tpu_torch.utils.metrics import MetricManager
 
@@ -104,7 +113,13 @@ class Frontend:
             or self.process_count == 0)
         if not update_needed:
             return False
+        with MetricManager.span("keyframe", keyframe=slam.scans.count):
+            self._keyframe(slam, raw_scan, odom_pose)
+        return True
 
+    def _keyframe(self, slam: "LidarGraphSlam", raw_scan: RawScan,
+                  odom_pose: np.ndarray):
+        cfg = self.config
         scan = (self.accumulator.concatenated()
                 if self.accumulator is not None else raw_scan)
         if self.interpolator is not None:
@@ -141,7 +156,6 @@ class Frontend:
         self.accumulated_angle = 0.0
         self.last_map_update_odom = odom_pose.copy()
         self.last_map_update_time = scan.timestamp
-        return True
 
     def flush(self, slam: "LidarGraphSlam"):
         """Resolve the pending keyframe (append node/edge + map update).
@@ -193,6 +207,7 @@ class Backend:
         self.num_loop_edges = 0
         self.num_device_solves = 0
         self.num_sharded_solves = 0
+        self.num_passes = 0
         if mesh is not None and hasattr(detector, "mesh"):
             detector.mesh = mesh
 
@@ -211,17 +226,27 @@ class Backend:
             return optimizer_host.optimize_host(snapshot, self.lm_config)
         res = optimizer_lm.optimize(snapshot, self.lm_config, self.device)
         self.num_device_solves += 1
-        return res._replace(poses=res.poses.cpu().numpy())
+        return res._replace(
+            poses=device_mod.sync(res.poses, site="solve").numpy())
 
     def run_once(self, slam: "LidarGraphSlam", window_nodes=None) -> int:
-        """One backend pass; returns the number of accepted loop edges.
+        """One backend pass, the ``backend.pass`` span; returns the number
+        of accepted loop edges.
 
         ``window_nodes``: replay mode passes the nodes appended since the
         last pass, so any of them can trigger a candidate
         (``LoopSearcherNearest.search_window``); online mode searches from
         the latest node only, as the reference does. Metrics under the JAX
-        package's names (``slam.py:226-324``).
+        package's names (``slam.py:226-324``); ``PostClosureRebuildTime``
+        is, on a card, the device's time from the start of the pose write
+        back's first queued work to the end of the rebuilds
+        (``MetricManager.device_timer``), on the CPU the host's.
         """
+        self.num_passes += 1
+        with MetricManager.span("backend.pass", keyframe=self.num_passes):
+            return self._pass(slam, window_nodes)
+
+    def _pass(self, slam: "LidarGraphSlam", window_nodes) -> int:
         metrics = MetricManager.instance()
         # Candidate search reads the live graph/builder arrays; under the
         # lock like GetLoopSearchHint (lidar_graph_slam.cpp:103-152).
@@ -234,7 +259,9 @@ class Backend:
         if not candidates:
             return 0
         t0 = time.time()
-        results = self.detector.detect(slam.graph, slam.builder, candidates)
+        with MetricManager.span("backend.detect"):
+            results = self.detector.detect(slam.graph, slam.builder,
+                                           candidates)
         metrics.distributions("LoopDetectionTime").observe(time.time() - t0)
         metrics.counters("LoopDetectionQueries").increment(
             sum(len(c.node_indices) for c in candidates))
@@ -254,17 +281,16 @@ class Backend:
                 edge_cap=_round_multiple(slam.graph.num_edges, n_dev))
             optimized_count = slam.graph.num_nodes
         t0 = time.time()
-        res = self._optimize(snapshot)
-        poses_opt = np.asarray(res.poses, np.float64)
+        with MetricManager.span("backend.solve"):
+            res = self._optimize(snapshot)
+            poses_opt = np.asarray(res.poses, np.float64)
         metrics.distributions("PoseGraphSolveTime").observe(time.time() - t0)
         t0 = time.time()
         _dump_error_histogram(snapshot, poses_opt, metrics)
         metrics.distributions("ErrorHistogramTime").observe(
             time.time() - t0)
-        t0 = time.time()
-        slam.after_loop_closure(poses_opt, optimized_count)
-        metrics.distributions("PostClosureRebuildTime").observe(
-            time.time() - t0)
+        with metrics.device_timer("PostClosureRebuildTime", slam.device):
+            slam.after_loop_closure(poses_opt, optimized_count)
         self.num_loop_closures += 1
         self.num_loop_edges += len(results)
         return len(results)
@@ -304,6 +330,23 @@ def _round_multiple(n: int, k: int, minimum: int = 64) -> int:
     return cap
 
 
+class _WaitedLock:
+    """The SLAM's lock; while tracing, every acquisition is a
+    ``lock_wait`` span from asking for the lock to holding it."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+
+    def __enter__(self):
+        with MetricManager.span("lock_wait"):
+            self._lock.acquire()
+        return self
+
+    def __exit__(self, *exc):
+        self._lock.release()
+        return False
+
+
 class LidarGraphSlam:
     """Facade + shared-state owner (lidar_graph_slam.hpp:41-160)."""
 
@@ -315,7 +358,7 @@ class LidarGraphSlam:
         self.builder = builder
         self.graph = graph
         self.scans = builder.scans
-        self._lock = threading.Lock()
+        self._lock = _WaitedLock()
         self._threaded = threaded_backend
         self._backend_thread: Optional[threading.Thread] = None
         self._backend_error: Optional[BaseException] = None

@@ -42,6 +42,7 @@ from my_lidar_graph_slam_tpu_torch.ops import grid as gridops
 from my_lidar_graph_slam_tpu_torch.ops import matchers, matchers_sweep
 from my_lidar_graph_slam_tpu_torch.ops import pyramid as pyrops
 from my_lidar_graph_slam_tpu_torch.ops import scoring
+from my_lidar_graph_slam_tpu_torch.utils import device as device_mod
 from my_lidar_graph_slam_tpu_torch.utils import se2
 from my_lidar_graph_slam_tpu_torch.utils.metrics import MetricManager
 
@@ -251,7 +252,7 @@ def _match(coarse_map, fine_map, grid: gridops.GridMap, initial_poses,
                                     rel_sensor_poses, cov)
         packed = matchers_sweep.pack_summary(summary)
         packed[:, 15] = exact.to(torch.float32)
-        host = packed.cpu().numpy()
+        host = device_mod.sync(packed, site="two_stage").numpy()
         exact_np = host[:, 15] > 0.5
         if exact_np.all() or m >= n_blocks - 1:
             return TwoStageResult(summary, exact_np | (m >= n_blocks - 1),
@@ -268,7 +269,7 @@ def _scan_rows(scan_store, ids, device):
     nb = scan_store.beam_bucket()
 
     def up(arr):
-        return torch.from_numpy(np.ascontiguousarray(arr)).to(device)
+        return device_mod.upload(arr, device, site="two_stage")
 
     return (up(scan_store.ranges[ids, :nb]), up(scan_store.angles[ids, :nb]),
             up(scan_store.valid[ids, :nb]), up(scan_store.min_range[ids]),
@@ -299,10 +300,12 @@ def two_stage_match_batch(coarse_map, fine_map, grid: gridops.GridMap,
     ranges, angles, valid, rmin, rmax, rel = _scan_rows(scan_store, ids, dev)
     if num_total_beams is None:
         num_total_beams = np.maximum(scan_store.raw_beams[ids], 1)
-    n_total = torch.from_numpy(
-        np.asarray(num_total_beams, np.float32).reshape(len(ids))).to(dev)
-    poses = torch.from_numpy(
-        np.asarray(initial_poses, np.float32).reshape(len(ids), 3)).to(dev)
+    n_total = device_mod.upload(
+        np.asarray(num_total_beams, np.float32).reshape(len(ids)), dev,
+        site="two_stage")
+    poses = device_mod.upload(
+        np.asarray(initial_poses, np.float32).reshape(len(ids), 3), dev,
+        site="two_stage")
     return _match(coarse_map, fine_map, grid, poses, ranges, angles, valid,
                   rmin, rmax, rel, n_total, low_resolution=low_resolution,
                   range_x=range_x, range_y=range_y, range_theta=range_theta,

@@ -70,7 +70,8 @@ def empty(height: int, width: int, resolution: float, center=None,
                              device=device),
         observed=torch.zeros((height, width), dtype=torch.bool,
                              device=device),
-        origin=torch.as_tensor(origin, dtype=torch.float32, device=device),
+        origin=device_mod.upload(origin, device, torch.float32,
+                                 site="grid_origin"),
         resolution=float(resolution),
     )
 
@@ -156,7 +157,8 @@ def counting_empty(height: int, width: int, resolution: float, center=None,
     zeros = torch.zeros((height, width), dtype=torch.float32, device=device)
     return CountingGridMap(
         hits=zeros, counts=zeros.clone(),
-        origin=torch.as_tensor(origin, dtype=torch.float32, device=device),
+        origin=device_mod.upload(origin, device, torch.float32,
+                                 site="grid_origin"),
         resolution=float(resolution))
 
 

@@ -18,8 +18,8 @@ tensor, its plain version on a CPU tensor.
 
 Host synchronization: grid search and branch-and-bound read nothing back
 (their level and chunk loops are static); hill climbing and the linear
-solver loop on data and read one flag per step, counted in the
-``host_syncs`` attribute of each function.
+solver loop on data and read one flag per step through
+``utils/device.py::sync``, which counts it in ``HostSyncs.<layer>``.
 """
 
 from __future__ import annotations
@@ -33,6 +33,7 @@ from my_lidar_graph_slam_tpu_torch.ops import cost as costops
 from my_lidar_graph_slam_tpu_torch.ops import grid as gridops
 from my_lidar_graph_slam_tpu_torch.ops import scoring
 from my_lidar_graph_slam_tpu_torch.ops.cuda import greedy_cost
+from my_lidar_graph_slam_tpu_torch.utils import device as device_mod
 from my_lidar_graph_slam_tpu_torch.utils import se2
 
 # Most (query, candidate, beam) reads the grid search holds at once: the
@@ -240,7 +241,7 @@ def correlative_match_pruned_batch(value_map, bound_stack,
     dev = ranges.device
     q = ranges.shape[0]
     f32 = torch.float32
-    neg_inf = torch.tensor(-torch.inf, dtype=f32, device=dev)
+    neg_inf = device_mod.upload(-math.inf, dev, f32, site="pruned_match")
     n_total = num_total_beams.to(f32)
 
     sensor_poses = se2.compound(initial_poses, rel_sensor_poses)
@@ -578,9 +579,8 @@ def hill_climbing_match(value_map, grid: gridops.GridMap, initial_poses,
     (scan_matcher_hill_climbing.cpp:26-109).
 
     The JAX package's ``lax.while_loop`` becomes a host loop that reads one
-    flag per step (counted in ``hill_climbing_match.host_syncs``); a query
-    whose loop has ended keeps its state, so each query's iterate equals
-    the JAX loop's.
+    flag per step (``HostSyncs``); a query whose loop has ended keeps its
+    state, so each query's iterate equals the JAX loop's.
     """
     dev = ranges.device
     f32 = torch.float32
@@ -599,9 +599,10 @@ def hill_climbing_match(value_map, grid: gridops.GridMap, initial_poses,
             return costops.square_error_cost(*args)
         return costops.greedy_endpoint_cost(*args, **gp)
 
-    moves = torch.tensor([[1.0, 0.0, 0.0], [-1.0, 0.0, 0.0],
-                          [0.0, 1.0, 0.0], [0.0, -1.0, 0.0],
-                          [0.0, 0.0, 1.0], [0.0, 0.0, -1.0]], device=dev)
+    moves = device_mod.upload([[1.0, 0.0, 0.0], [-1.0, 0.0, 0.0],
+                               [0.0, 1.0, 0.0], [0.0, -1.0, 0.0],
+                               [0.0, 0.0, 1.0], [0.0, 0.0, -1.0]], dev,
+                              site="hill_climbing")
     q = ranges.shape[0]
     best_pose = sensor_poses
     best_cost = cost_fn(sensor_poses[:, None, :])[:, 0]
@@ -611,8 +612,7 @@ def hill_climbing_match(value_map, grid: gridops.GridMap, initial_poses,
     updated = torch.ones((q,), dtype=torch.bool, device=dev)
     for _ in range(max_iterations):
         active = updated | (refinements < max_refinements)
-        hill_climbing_match.host_syncs += 1
-        if not bool(active.any()):
+        if not bool(device_mod.sync(active.any(), site="hill_climbing")):
             break
         scale = torch.stack([lin, lin, ang], dim=-1)
         cand = best_pose[:, None, :] + moves * scale[:, None, :]
@@ -640,8 +640,6 @@ def hill_climbing_match(value_map, grid: gridops.GridMap, initial_poses,
                     cov)
 
 
-hill_climbing_match.host_syncs = 0
-
 
 # ---------------------------------------------------------------------------
 # Gauss-Newton (linear solver)
@@ -660,8 +658,8 @@ def linear_solver_match(value_map, grid: gridops.GridMap, initial_poses,
     """Iterative Gauss-Newton on the bicubic-smoothed map for Q queries
     (scan_matcher_linear_solver.cpp:38-148).
 
-    A host loop that reads one flag per step (counted in
-    ``linear_solver_match.host_syncs``); a finished query keeps its state.
+    A host loop that reads one flag per step (``HostSyncs``); a finished
+    query keeps its state.
     The 3x3 normal matrix is a multiply-and-sum, so it stays float32
     whatever the caller's TF32 setting.
     """
@@ -673,9 +671,9 @@ def linear_solver_match(value_map, grid: gridops.GridMap, initial_poses,
     mask = range_gate(valid, ranges, usable_range_min, usable_range_max,
                       scan_min_range[:, None],
                       scan_max_range[:, None]).to(f32)
-    reg = torch.diag(torch.tensor(
+    reg = torch.diag(device_mod.upload(
         [translation_regularizer, translation_regularizer,
-         rotation_regularizer], dtype=f32, device=dev))
+         rotation_regularizer], dev, f32, site="linear_solver"))
 
     def gn_step(pose):
         world_angle = pose[:, 2:3] + angles
@@ -706,8 +704,7 @@ def linear_solver_match(value_map, grid: gridops.GridMap, initial_poses,
         done = done | (torch.abs(cost - c) < convergence_threshold)
         cost = torch.where(active, c, cost)
         if it + 1 < max_iterations:
-            linear_solver_match.host_syncs += 1
-            if bool(done.all()):
+            if bool(device_mod.sync(done.all(), site="linear_solver")):
                 break
 
     cov = costops.square_error_covariance(value_map, grid, pose, ranges,
@@ -716,5 +713,3 @@ def linear_solver_match(value_map, grid: gridops.GridMap, initial_poses,
                     torch.zeros((q,), dtype=f32, device=dev), n_total,
                     initial_poses, pose, rel_sensor_poses, cov)
 
-
-linear_solver_match.host_syncs = 0

@@ -21,6 +21,7 @@ from __future__ import annotations
 import torch
 
 from my_lidar_graph_slam_tpu_torch.ops import grid as gridops
+from my_lidar_graph_slam_tpu_torch.utils import device as device_mod
 from my_lidar_graph_slam_tpu_torch.utils import se2
 
 
@@ -119,10 +120,10 @@ def integrate_scan(grid: gridops.GridMap, sensor_pose, ranges, angles, valid,
     return integrate_scans(
         grid, sensor_pose[None], ranges[None], angles[None], valid[None],
         torch.zeros((1, 3), dtype=torch.float32, device=ranges.device),
-        torch.as_tensor([usable_range_min], dtype=torch.float32,
-                        device=ranges.device),
-        torch.as_tensor([usable_range_max], dtype=torch.float32,
-                        device=ranges.device),
+        device_mod.upload([usable_range_min], ranges.device, torch.float32,
+                          site="integrate_scan"),
+        device_mod.upload([usable_range_max], ranges.device, torch.float32,
+                          site="integrate_scan"),
         prob_hit=prob_hit, prob_miss=prob_miss, max_steps=max_steps)
 
 

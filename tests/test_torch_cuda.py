@@ -594,3 +594,57 @@ def test_fanout_on_the_card_launches_k2_and_matches_the_cpu(dev):
                                rtol=0, atol=1e-4)
     np.testing.assert_allclose(got.normalized_score, ref.normalized_score,
                                rtol=1e-3, atol=1e-4)
+
+
+def test_host_syncs_are_counted_at_their_sites(dev):
+    """Over 100 keyframes of the bb_frontend settings (synchronous
+    backend) on the synthetic intel world, the ``HostSyncs.*`` counters
+    equal the synchronizing operations that
+    ``torch.cuda.set_sync_debug_mode("warn")`` reports, all of them from
+    ``utils/device.py``'s two helpers, plus the one kind of site it does
+    not report: each resolved match's CUDA event wait
+    (``AsyncMatcher.resolve_async``, one per ``FrontendMatches``)."""
+    import collections
+    import warnings
+
+    from my_lidar_graph_slam_tpu_torch import launcher
+    from my_lidar_graph_slam_tpu_torch.io import synth
+    from my_lidar_graph_slam_tpu_torch.utils import config
+    from my_lidar_graph_slam_tpu_torch.utils import device as device_mod
+    from my_lidar_graph_slam_tpu_torch.utils.metrics import MetricManager
+
+    scans, _ = synth.simulate(synth.intel_world(),
+                              synth.intel_waypoints(laps=1),
+                              synth.SimConfig(step=0.08, seed=0))
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    cfg = config.load(os.path.join(root, "configs",
+                                   "launcher_settings_bb_frontend.json"))
+    launcher.build_kernels(dev)
+    slam = config.create_slam(cfg, device=dev, threaded_backend=False)
+    MetricManager.reset_instance()
+    torch.cuda.synchronize()
+    keyframes = 0
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            for scan in scans:
+                keyframes += slam.process_scan(scan, scan.odom_pose)
+                if keyframes == 100:
+                    break
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    assert keyframes == 100
+    reported = [w for w in caught if "synchroniz" in str(w.message)]
+    helpers = os.path.abspath(device_mod.__file__)
+    elsewhere = collections.Counter(
+        f"{w.filename}:{w.lineno}" for w in reported
+        if os.path.abspath(w.filename) != helpers)
+    assert not elsewhere, elsewhere
+    counters = MetricManager.instance().to_dict()["Counters"]
+    syncs = {k: v["value"] for k, v in counters.items()
+             if k.startswith("HostSyncs.")}
+    event_waits = counters["FrontendMatches"]["value"]
+    assert event_waits == 99
+    assert sum(syncs.values()) == len(reported) + event_waits, syncs

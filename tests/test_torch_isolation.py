@@ -11,7 +11,7 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 PKG = ROOT / "my_lidar_graph_slam_tpu_torch"
 SOURCES = sorted(p for p in PKG.rglob("*.py")
                  if "build" not in p.relative_to(PKG).parts) + \
-    [ROOT / "chip_smoke.py", ROOT / "tools" / "profile_torch_slice.py",
+    [ROOT / "chip_smoke.py",
      ROOT / "tools" / "replay_detections_torch.py",
      ROOT / "tools" / "kernel_ab.py", ROOT / "tools" / "compare_modes.py",
      ROOT / "tools" / "bb_frontier_caps.py"]
