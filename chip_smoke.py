@@ -25,8 +25,10 @@ with a CUDA card and the CUDA toolkit (``nvcc``). Phases:
    launcher_settings_default.json``, synchronous backend) over a synthetic
    intel-like world, 2 laps at 0.08 m steps, through ``config.load``,
    ``config.create_slam``, ``carmen.load`` and ``process_scan``. The launch
-   counters are zeroed just before and read just after, as in phases 6
-   to 11; each of them fails if a kernel did not launch.
+   counters (K1's and K2's, K3's ``RaycastKernelLaunches`` and the plain
+   cast's ``RaycastPlainScans``) are zeroed just before and read just
+   after, as in phases 6 to 11; each of them fails if a kernel did not
+   launch or the plain cast ran on the card.
 6. Launcher: ``launcher.run`` (the entry point of ``python -m
    my_lidar_graph_slam_tpu_torch.launcher``) on
    ``configs/launcher_settings_robust.json`` verbatim (up to 3 candidate
@@ -132,7 +134,15 @@ with a CUDA card and the CUDA toolkit (``nvcc``). Phases:
    of the bytes the call must move (the map cells it reads, counted on
    these inputs, plus the other inputs and the output, each once) over
    3.35 TB/s and its operations over 67 TFLOP/s, with its share of the
-   back-to-back and queued times.
+   back-to-back and queued times. Last K3, the map builder's cast, at
+   each path that those runs gave it (one scan into a local map, the
+   latest map's scans, a stacked rebuild, several scans into one map),
+   on a copy of the arguments of the widest call at that path: the cast
+   against the plain cast (``observed`` equal, log-odds within
+   ``ops/raycast.py::kernel_tolerance``) and its relaunch (bit-equal),
+   the kernel timed the same three ways in place, the plain cast's time,
+   and the bound from the distinct cells the call touches (9 bytes each)
+   and its scan inputs.
 
 The last three lines of standard output are the ``kernels`` JSON line, the
 ``nvidia-smi`` name and power limit, and the result line
@@ -431,6 +441,65 @@ class Recorder:
         setattr(self.module, self.name, self.fn)
 
 
+class CastRecorder:
+    """Stands in for ``ops/raycast.py::integrate_scans_stacked`` (the cast
+    that launches K3 on the card) during a run: counts its calls on CUDA
+    tensors at each path and keeps a copy of the arguments of one call per
+    path, the widest (most maps, then most scans; the last of equals). The
+    path is "latest" for a map of the latest map's width, "local" for one
+    scan into one map of another width, "rebuild" for a stack of maps and
+    "scans" for several scans into one map (a single map's rebuild, a
+    replay chunk, the global map)."""
+
+    def __init__(self, latest_width):
+        import inspect
+
+        from my_lidar_graph_slam_tpu_torch.ops import raycast
+
+        self.module = raycast
+        self.fn = raycast.integrate_scans_stacked
+        self.signature = inspect.signature(self.fn)
+        self.latest_width = latest_width
+        self.calls = {}
+        self.counts = {}
+        raycast.integrate_scans_stacked = self
+
+    def __call__(self, *args, **kwargs):
+        bound = self.signature.bind(*args, **kwargs)
+        bound.apply_defaults()
+        a = bound.arguments
+        m, _, w = a["log_odds"].shape
+        k = a["node_poses"].shape[1]
+        if m and k and a["log_odds"].is_cuda:
+            path = ("latest" if w == self.latest_width else
+                    "local" if m == 1 and k == 1 else
+                    "rebuild" if m > 1 else "scans")
+            self.counts[path] = self.counts.get(path, 0) + 1
+            kept = self.calls.get(path)
+            if kept is None or (m, k) >= tuple(kept["node_poses"].shape[:2]):
+                # Copies, for a donated map is written into by the call;
+                # without ``donate``, for the plain cast takes none.
+                self.calls[path] = {
+                    n: v.clone() if hasattr(v, "clone") else v
+                    for n, v in a.items() if n != "donate"}
+        return self.fn(*args, **kwargs)
+
+    def restore(self):
+        self.module.integrate_scans_stacked = self.fn
+
+
+K3_COUNTERS = ("RaycastKernelLaunches", "RaycastPlainScans")
+
+
+def k3_counter(name):
+    """The value of counter ``name`` of the current metrics, 0 where it
+    does not exist (reading it does not create it)."""
+    from my_lidar_graph_slam_tpu_torch.utils.metrics import MetricManager
+
+    family = MetricManager.instance().counters
+    return family(name).value if name in family.names() else 0
+
+
 def ate_anchored(est, est_t, gt, gt_t):
     """Translational ATE RMSE with est anchored so that its first pose
     coincides with the ground truth's (after nearest-timestamp
@@ -474,28 +543,41 @@ def slice_slam(dev):
 
 
 def start_recording(latest_width, detection_path="detection"):
-    """Zero both launch counters and put recorders in front of both kernel
-    wrappers; returns the recorders."""
+    """Zero the three kernels' launch counters (K3's and the plain cast's
+    in the current metrics) and put recorders in front of K1's and K2's
+    wrappers and of the cast; returns the recorders."""
     from my_lidar_graph_slam_tpu_torch.ops.cuda import correlate, greedy_cost
+    from my_lidar_graph_slam_tpu_torch.utils.metrics import MetricManager
 
     correlate.window_scores.launches = 0
     greedy_cost.greedy_cost_core.launches = 0
+    family = MetricManager.instance().counters
+    for name in K3_COUNTERS:
+        if name in family.names():
+            family(name).reset()
     return [Recorder(correlate, "window_scores", latest_width,
                      detection_path),
             Recorder(greedy_cost, "greedy_cost_core", latest_width,
-                     detection_path)]
+                     detection_path),
+            CastRecorder(latest_width)]
 
 
 def stop_recording(rec, what):
-    """Read both launch counters, put the wrappers back, and fail unless
-    both kernels launched during ``what``."""
+    """Read the three launch counters, put the wrappers back, and fail
+    unless every kernel launched during ``what`` and the plain cast never
+    ran."""
     launches = {"window_scores": rec[0].fn.launches,
-                "greedy_cost": rec[1].fn.launches}
+                "greedy_cost": rec[1].fn.launches,
+                "raycast": k3_counter("RaycastKernelLaunches")}
+    plain_scans = k3_counter("RaycastPlainScans")
     for r in rec:
         r.restore()
     for k, n in launches.items():
         if n <= 0:
             raise AssertionError(f"kernel {k} was not launched by {what}")
+    if plain_scans:
+        raise AssertionError(f"the plain cast ran {plain_scans} scans on "
+                             f"the card in {what}")
     for r, k in zip(rec, launches):
         if sum(r.counts.values()) != launches[k]:
             raise AssertionError(f"{k}: per-shape counts do not add up to "
@@ -1943,6 +2025,125 @@ def phase_times(torch, sources, slam, errs):
             "shape": {"M": m, "Q": q, "NB": nb, "masked_beams": n_masked,
                       "kernel_size": k, "map": list(vm.shape[-2:]),
                       "map_cells_read": read}})
+    return rows + k3_rows(torch, sources, common)
+
+
+def cast_cells(torch, a):
+    """(distinct cells, walk slots): what the cast with arguments ``a``
+    touches, from the plain walk (``trace_cells_batched``), scan by
+    scan."""
+    from my_lidar_graph_slam_tpu_torch.ops import raycast
+    from my_lidar_graph_slam_tpu_torch.utils import se2
+
+    m, h, w = a["log_odds"].shape
+    dev = a["log_odds"].device
+    touched = torch.zeros(m * h * w, dtype=torch.bool, device=dev)
+    offset = (torch.arange(m, device=dev) * (h * w))[:, None]
+    sensor = se2.compound(a["node_poses"], a["rel_sensor_poses"])
+    slots = 0
+    for j in range(sensor.shape[1]):
+        valid = a["scan_valid"][:, j]
+        if a["scan_active"] is not None:
+            valid = valid & a["scan_active"][:, j, None]
+        mf, mo, hf, ho = raycast.trace_cells_batched(
+            (h, w), a["origins"], a["resolution"], sensor[:, j],
+            a["scan_ranges"][:, j], a["scan_angles"][:, j], valid,
+            a["usable_range_min"][:, j], a["usable_range_max"][:, j],
+            a["max_steps"])
+        touched[(mf + offset)[mo]] = True
+        touched[(hf + offset)[ho]] = True
+        slots += int(mo.sum()) + int(ho.sum())
+    return int(touched.sum()), slots
+
+
+def k3_rows(torch, sources, common):
+    """K3 per path of the cast (see :class:`CastRecorder`), on the copied
+    arguments of the widest call at that path in the first phase that
+    recorded it: the cast on the card against the plain cast (``observed``
+    equal, log-odds within ``raycast.kernel_tolerance``) and against its
+    own relaunch (bit-equal); then the kernel alone (``ops/cuda/raycast.
+    integrate``, in place on a copy of the maps: the cells it walks do not
+    depend on their values) back to back, queued and with a cold L2; the
+    plain cast's time; and the bound: 9 bytes (log-odds read and written,
+    ``observed`` written) for each distinct cell the call touches plus its
+    scan inputs once, or 6 operations a walk slot and phase."""
+    from my_lidar_graph_slam_tpu_torch.ops import grid as gridops
+    from my_lidar_graph_slam_tpu_torch.ops import raycast
+    from my_lidar_graph_slam_tpu_torch.ops.cuda import raycast as k3
+    from my_lidar_graph_slam_tpu_torch.utils import se2
+
+    rows = []
+    for path in ("local", "latest", "rebuild", "scans"):
+        by_phase = [(phase, rec[2]) for phase, rec in sources
+                    if path in rec[2].calls]
+        if not by_phase:
+            continue
+        phase, r = by_phase[0]
+        a = r.calls[path]
+        m, h, w = a["log_odds"].shape
+        _, k, nb = a["scan_ranges"].shape
+        shape_name = f"{path} M={m} K={k} {h}x{w}"
+        name = f"{shape_name} ({phase} inputs)"
+        out, again = raycast.integrate_scans_stacked(**a), \
+            raycast.integrate_scans_stacked(**a)
+        ref = raycast.integrate_scans_stacked_plain(**a)
+        torch.cuda.synchronize()
+        if not (torch.equal(out[0], again[0]) and
+                torch.equal(out[1], again[1])):
+            raise AssertionError(f"K3 {name}: two launches differ")
+        if not torch.equal(out[1], ref[1]):
+            raise AssertionError(f"K3 {name}: observed differs from the "
+                                 "plain cast")
+        tol = raycast.kernel_tolerance(**a)
+        err = float((out[0] - ref[0]).abs().max())
+        if not err <= tol:
+            raise AssertionError(f"K3 {name}: log-odds {err} from the "
+                                 f"plain cast, beyond {tol}")
+        del out, again, ref
+        touched, slots = cast_cells(torch, a)
+        dev = a["log_odds"].device
+        sensor = se2.compound(a["node_poses"],
+                              a["rel_sensor_poses"]).contiguous()
+        scan = [None if a[n] is None else a[n].contiguous() for n in (
+            "origins", "scan_ranges", "scan_angles", "scan_valid",
+            "scan_active", "usable_range_min", "usable_range_max")]
+        kin = (a["log_odds"].clone(memory_format=torch.contiguous_format),
+               a["observed"].clone(memory_format=torch.contiguous_format),
+               scan[0], sensor, *scan[1:],
+               gridops.logit(gridops.scalar(a["prob_miss"], dev)),
+               gridops.logit(gridops.scalar(a["prob_hit"], dev)),
+               float(a["resolution"]), a["max_steps"], gridops.LOG_ODDS_MAX)
+
+        def kernel():
+            k3.integrate(*kin)
+
+        moved = 9 * touched + nbytes(*kin[2:10])
+        b, by = bound_ms(moved, 12.0 * slots)
+        ms, ms_queued = time_ms(torch, kernel), time_ms(torch, kernel,
+                                                        queued=True)
+        rows.append({
+            "name": f"raycast[{shape_name}]", "route": "cuda",
+            "source": "my_lidar_graph_slam_tpu_torch/csrc/raycast.cu",
+            "replaces": "XLA's scatter-add in my_lidar_graph_slam_tpu/ops/"
+                        "raycast.py (no Pallas kernel)",
+            "launches": sum(x.counts[path] for _, x in by_phase),
+            "launches_by_phase": {p: x.counts[path] for p, x in by_phase},
+            "phase": phase, "max_abs_err": err, "tolerance": tol,
+            "observed_equal_to_plain": True, "bit_equal_on_relaunch": True,
+            "ms": ms, "ms_queued": ms_queued,
+            "cold_ms": time_cold_ms(torch, kernel),
+            "plain_ms": time_ms(torch, lambda:
+                                raycast.integrate_scans_stacked_plain(**a),
+                                iters=3),
+            "bound_ms": b, "bound_by": by, "bound_share": share(b, ms),
+            "bound_share_queued": share(b, ms_queued),
+            "library_ms": None,
+            "library": "none: the plain cast (plain_ms) is PyTorch's "
+                       "index_put_(accumulate=True) scatter",
+            **common,
+            "shape": {"M": m, "K": k, "NB": nb, "map": [h, w],
+                      "max_steps": a["max_steps"],
+                      "cells_touched": touched, "walk_slots": slots}})
     return rows
 
 

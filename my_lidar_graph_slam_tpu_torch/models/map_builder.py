@@ -555,7 +555,7 @@ class GridMapBuilder:
             self._dev(ranges), self._dev(angles), self._dev(valid),
             self._dev(rel), self._dev(rmin), self._dev(rmax),
             self._dev(active), prob_hit=cfg.prob_hit,
-            prob_miss=cfg.prob_miss, max_steps=steps)
+            prob_miss=cfg.prob_miss, max_steps=steps, donate=True)
         for i, lm in enumerate(batch):
             lm.grid = gridops.GridMap(log_odds[i], observed[i],
                                       self._dev(origins[i]), cfg.resolution)

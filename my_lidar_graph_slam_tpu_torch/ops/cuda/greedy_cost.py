@@ -199,7 +199,9 @@ def greedy_cost_core(value_map, cells, mask, table, kernel_size: int,
     if q == 0:
         return raw
     stream = loader.stream_handle(cells)
-    scratch = _scratch(cells.device, stream, 1 + q * 7 * table.shape[0])
+    # A ticket, then the [Q, 7, C] class counts.
+    scratch = loader.zeroed_scratch("greedy_cost", cells.device, stream,
+                                    1 + q * 7 * table.shape[0])
     lib = _lib()
     status = lib.greedy_cost_f32(
         value_map.data_ptr(), h, w, cells.data_ptr(), mask.data_ptr(),
@@ -212,21 +214,6 @@ def greedy_cost_core(value_map, cells, mask, table, kernel_size: int,
 
 
 greedy_cost_core.launches = 0
-
-# Per (device, stream): the kernel's int32 scratch (a ticket, then the
-# [Q, 7, C] class counts). Every launch leaves it zeroed for the next one
-# on its stream, and two streams never share one; it grows (zeroed anew)
-# when a call needs more.
-_scratches = {}
-
-
-def _scratch(device, stream: int, size: int) -> torch.Tensor:
-    buf = _scratches.get((device, stream))
-    if buf is None or buf.numel() < size:
-        buf = torch.zeros(max(size, 4096), dtype=torch.int32, device=device)
-        _scratches[(device, stream)] = buf
-    return buf
-
 
 def _lib():
     lib = loader.library("greedy_cost")

@@ -31,7 +31,7 @@ CSRC = os.path.join(_PKG, "csrc")
 BUILD = os.path.join(_PKG, "build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
-SOURCES = ("correlate", "greedy_cost", "empty")
+SOURCES = ("correlate", "greedy_cost", "raycast", "empty")
 _INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+\.cuh)"', re.M)
 
 _lock = threading.Lock()
@@ -125,6 +125,25 @@ def stream_handle(tensor) -> int:
     if _raw_stream is not None:
         return _raw_stream(index)
     return torch.cuda.current_stream(index).cuda_stream
+
+
+# Per (kernel, device, stream): a kernel's int32 scratch, zero between its
+# launches (each launch leaves it zero for the next one on its stream);
+# it grows, zeroed anew, when a call needs more, and two streams never
+# share one.
+_scratches: Dict[tuple, torch.Tensor] = {}
+
+
+def zeroed_scratch(kernel: str, device, stream: int,
+                   size: int) -> torch.Tensor:
+    """At least ``size`` int32 zeros that ``kernel``'s launches on
+    ``stream`` share, for a kernel that clears what it uses."""
+    key = (kernel, device, stream)
+    buf = _scratches.get(key)
+    if buf is None or buf.numel() < size:
+        buf = torch.zeros(max(size, 4096), dtype=torch.int32, device=device)
+        _scratches[key] = buf
+    return buf
 
 
 def check(status: int, what: str) -> None:

@@ -9,11 +9,14 @@ log-odds increments plus a scatter-max of ``observed``.
 The map is clamped after EACH scan (approximating the reference's
 per-update clamp, binary_bayes_grid_cell.hpp:90-99), so scan order
 matters: :func:`integrate_scans` walks its scans in order and
-never merges them into one scatter. On the card the scatter-add runs on
-atomics whose order varies, so maps built there match the CPU to a
-tolerance, not bit for bit. :func:`integrate_scan_counting` walks the same
-cells into a counting map; its whole-number counts are the same bits on
-the card.
+never merges them into one scatter. :func:`integrate_scans_stacked` (and
+through it :func:`integrate_scan` and :func:`integrate_scans`) runs this
+plain PyTorch path on CPU tensors; CUDA tensors take the K3 kernel
+(``ops/cuda/raycast.py``), one launch a call, which walks the same cells
+and adds whole-number hit and miss counts, so its maps are the same bits
+from run to run; any other device raises. :func:`integrate_scan_counting`
+walks the same cells into a counting map; its whole-number counts are the
+same bits on the card.
 """
 
 from __future__ import annotations
@@ -21,8 +24,10 @@ from __future__ import annotations
 import torch
 
 from my_lidar_graph_slam_tpu_torch.ops import grid as gridops
+from my_lidar_graph_slam_tpu_torch.ops.cuda import raycast as kernel
 from my_lidar_graph_slam_tpu_torch.utils import device as device_mod
 from my_lidar_graph_slam_tpu_torch.utils import se2
+from my_lidar_graph_slam_tpu_torch.utils.metrics import MetricManager
 
 
 def trace_cells(grid: gridops.GridMap, sensor_pose, ranges, angles, valid,
@@ -178,17 +183,57 @@ def integrate_scans_stacked(log_odds, observed, origins, resolution,
                             rel_sensor_poses, usable_range_min,
                             usable_range_max, scan_active=None,
                             prob_hit=0.6, prob_miss=0.45,
-                            max_steps: int = 448):
+                            max_steps: int = 448, donate: bool = False):
     """:func:`integrate_scans` on M same-size maps at once.
 
-    ``log_odds``/``observed`` [M, H, W] (copied, not modified); scan
-    tensors [M, K, ...]; ``origins`` f32[M, 2]. Step k integrates scan k of
-    every map, so each map sees its own scans in order, exactly as M
-    separate calls would. Returns ``(log_odds, observed)``.
+    ``log_odds``/``observed`` [M, H, W] (copied, not modified, unless
+    ``donate``: then the caller gives them up and the kernel may write
+    into them); scan tensors [M, K, ...]; ``origins`` f32[M, 2]. Step k
+    integrates scan k of every map, so each map sees its own scans in
+    order, exactly as M separate calls would. Returns ``(log_odds,
+    observed)``. CPU tensors take :func:`integrate_scans_stacked_plain`;
+    CUDA tensors launch the K3 kernel once (and raise if it cannot be
+    built or launched), which clamps only the cells it touches: the same
+    map for input maps within the clamp, as every map the port builds is.
     """
+    dev = log_odds.device
+    if dev.type == "cpu":
+        return integrate_scans_stacked_plain(
+            log_odds, observed, origins, resolution, node_poses, scan_ranges,
+            scan_angles, scan_valid, rel_sensor_poses, usable_range_min,
+            usable_range_max, scan_active, prob_hit, prob_miss, max_steps)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    if donate:
+        lo, ob = log_odds.contiguous(), observed.contiguous()
+    else:
+        lo = log_odds.clone(memory_format=torch.contiguous_format)
+        ob = observed.clone(memory_format=torch.contiguous_format)
+    sensor_poses = se2.compound(node_poses, rel_sensor_poses)  # [M, K, 3]
+    kernel.integrate(
+        lo, ob, origins.contiguous(), sensor_poses.contiguous(),
+        scan_ranges.contiguous(), scan_angles.contiguous(),
+        scan_valid.contiguous(),
+        None if scan_active is None else scan_active.contiguous(),
+        usable_range_min.contiguous(), usable_range_max.contiguous(),
+        gridops.logit(gridops.scalar(prob_miss, dev)),
+        gridops.logit(gridops.scalar(prob_hit, dev)),
+        float(resolution), max_steps, gridops.LOG_ODDS_MAX)
+    return lo, ob
+
+
+def integrate_scans_stacked_plain(log_odds, observed, origins, resolution,
+                                  node_poses, scan_ranges, scan_angles,
+                                  scan_valid, rel_sensor_poses,
+                                  usable_range_min, usable_range_max,
+                                  scan_active=None, prob_hit=0.6,
+                                  prob_miss=0.45, max_steps: int = 448):
+    """:func:`integrate_scans_stacked` in plain PyTorch on any device: per
+    scan, :func:`trace_cells_batched` and :func:`_apply`."""
     m, h, w = log_odds.shape
     k = node_poses.shape[1]
     dev = log_odds.device
+    MetricManager.instance().counters("RaycastPlainScans").increment(m * k)
     lo = log_odds.clone().reshape(-1)
     ob = observed.clone().reshape(-1)
     if scan_active is None:
@@ -209,3 +254,37 @@ def integrate_scans_stacked(log_odds, observed, origins, resolution,
                 (hit_flat + offset).reshape(-1), hit_ok.reshape(-1)),
                lo_miss, lo_hit)
     return lo.reshape(m, h, w), ob.reshape(m, h, w)
+
+
+def kernel_tolerance(log_odds, observed, origins, resolution, node_poses,
+                     scan_ranges, scan_angles, scan_valid, rel_sensor_poses,
+                     usable_range_min, usable_range_max, scan_active=None,
+                     prob_hit=0.6, prob_miss=0.45,
+                     max_steps: int = 448) -> float:
+    """A bound on |K3 - plain| log-odds for one :func:`integrate_scans_stacked`
+    call with these arguments, from the plain walk's counts. Per scan and
+    cell the plain cast sums n equal increments x (in any order:
+    |fl(sum) - n x| <= (n - 1) u n |x|, u the float32 unit roundoff), the
+    kernel forms n x (one rounding); each side then rounds at most three
+    times more (the two adds, the product) on values of at most
+    L + n|x|, L = LOG_ODDS_MAX. The clamp does not widen a gap, so the
+    per-scan bounds add up. ``observed`` is not read."""
+    u = 2.0 ** -24
+    m, h, w = log_odds.shape
+    x_miss = abs(float(gridops.logit(torch.tensor(prob_miss))))
+    x_hit = abs(float(gridops.logit(torch.tensor(prob_hit))))
+    sensor = se2.compound(node_poses, rel_sensor_poses)
+    tol = 0.0
+    for k in range(sensor.shape[1]):
+        valid = scan_valid[:, k]
+        if scan_active is not None:
+            valid = valid & scan_active[:, k, None]
+        mf, mo, hf, ho = trace_cells_batched(
+            (h, w), origins, resolution, sensor[:, k], scan_ranges[:, k],
+            scan_angles[:, k], valid, usable_range_min[:, k],
+            usable_range_max[:, k], max_steps)
+        nm = int(torch.bincount(mf[mo]).max()) if mo.any() else 0
+        nh = int(torch.bincount(hf[ho]).max()) if ho.any() else 0
+        tol += u * (nm * nm * x_miss + nh * nh * x_hit +
+                    6 * (gridops.LOG_ODDS_MAX + nm * x_miss + nh * x_hit))
+    return tol

@@ -520,6 +520,251 @@ def test_counting_integration_on_the_card_is_bit_equal(dev):
 
 
 # --------------------------------------------------------------------------
+# K3: the ray-cast kernel against the plain cast, both on the card.
+# --------------------------------------------------------------------------
+
+def _cast(gen, m, k, size, *, nb=192, live=181, spread=1.0, r_lo=0.2,
+          r_hi=20.0, gate=(0.1, 20.0), res=0.05, max_steps=448,
+          at=(0.0, 0.0), active_rows=None):
+    """Inputs of integrate_scans_stacked, on the CPU: M maps of size^2
+    cells centred on (3, -2) + 0.7 i m (map i), K scans each of ``live``
+    beams over -pi/2..pi/2 padded to ``nb`` (valid False, range 0), robot
+    poses within ``spread`` m of the centre + ``at``, uniform ranges in
+    [r_lo, r_hi) against the gate ``gate``."""
+    c = torch.tensor([3.0, -2.0]) + \
+        0.7 * torch.arange(m, dtype=torch.float32)[:, None]
+    origins = c - 0.5 * res * size
+    poses = torch.cat([(c + torch.tensor(at))[:, None, :] + spread * (
+        2 * torch.rand((m, k, 2), generator=gen) - 1),
+        6 * torch.rand((m, k, 1), generator=gen) - 3], dim=2)
+    rel = torch.tensor([0.1, -0.05, 0.02]).expand(m, k, 3).contiguous()
+    ranges = torch.zeros((m, k, nb))
+    ranges[..., :live] = r_lo + (r_hi - r_lo) * torch.rand(
+        (m, k, live), generator=gen)
+    angles = torch.zeros((m, k, nb))
+    angles[..., :live] = torch.linspace(-np.pi / 2, np.pi / 2, live)
+    valid = torch.zeros((m, k, nb), dtype=torch.bool)
+    valid[..., :live] = True
+    active = None
+    if active_rows is not None:
+        active = torch.arange(k)[None, :] < torch.tensor(active_rows)[:, None]
+    return dict(
+        log_odds=torch.zeros((m, size, size)),
+        observed=torch.zeros((m, size, size), dtype=torch.bool),
+        origins=origins, resolution=res, node_poses=poses,
+        scan_ranges=ranges, scan_angles=angles, scan_valid=valid,
+        rel_sensor_poses=rel,
+        usable_range_min=torch.full((m, k), gate[0]),
+        usable_range_max=torch.full((m, k), gate[1]),
+        scan_active=active, max_steps=max_steps)
+
+
+def _cast_on(dev, inputs):
+    return {n: _to(v, dev) for n, v in inputs.items()}
+
+
+def _k3_edge(gen, case):
+    if case == "one_scan_1536":
+        return _cast(gen, 1, 1, 1536)
+    if case == "ten_scans_1024":
+        return _cast(gen, 1, 10, 1024)
+    if case == "stacked_ragged_active":
+        return _cast(gen, 3, 12, 512, active_rows=[12, 5, 9])
+    if case == "padded_beams":
+        return _cast(gen, 2, 4, 512, nb=384, live=97)
+    if case == "outside_the_gate":
+        return _cast(gen, 1, 6, 512, r_lo=0.0, r_hi=30.0, gate=(1.0, 15.0))
+    if case == "beams_leave_the_map":
+        return _cast(gen, 1, 6, 128, r_hi=20.0)
+    if case == "sensor_near_the_border":
+        # Sensor cells 0-8 cells in from the lower-left corner of a
+        # 12.8 m map.
+        return _cast(gen, 1, 6, 256, spread=0.05, at=(-6.2, -6.2))
+    if case == "sensor_off_the_map":
+        return _cast(gen, 1, 6, 256, spread=0.3, at=(7.5, 0.0))
+    if case == "two_beam_chunks":
+        # More beams than a block has threads: the beams come in chunks.
+        return _cast(gen, 2, 3, 512, nb=1472, live=1400)
+    if case == "max_steps_below_n_steps":
+        return _cast(gen, 2, 5, 512, r_hi=12.0, max_steps=32)
+    if case == "hit_and_missed_in_one_scan":
+        # Beam pairs along one angle: one hits where the other passes.
+        inp = _cast(gen, 1, 4, 512, r_lo=1.0, r_hi=8.0)
+        inp["scan_angles"][..., 1:181:2] = inp["scan_angles"][..., 0:180:2]
+        inp["scan_ranges"][..., 1:181:2] = \
+            inp["scan_ranges"][..., 0:180:2] + 1.5
+        return inp
+    if case == "sparse_beams":
+        # 8 long beams 22.5 degrees apart from a sensor that stays put:
+        # they share only the few cells around the sensor, so an exact
+        # ``observed`` compares the walk cell for cell.
+        inp = _cast(gen, 1, 3, 1024, spread=0.0, r_lo=15.0, r_hi=19.0)
+        inp["scan_valid"][..., 8:] = False
+        inp["scan_ranges"][..., 8:] = 0.0
+        inp["scan_angles"][..., :8] = torch.arange(8) * (np.pi / 8)
+        inp["node_poses"][..., 2] = torch.tensor([0.0, 0.1, 0.2])
+        return inp
+    if case == "hot_cell_clamps":
+        # Every live beam starts with a miss of the sensor cell: 181
+        # misses a scan (181 * logit(0.45) = -36.3, clamped at -6.9);
+        # short ranges put 181 hits on a few cells as well.
+        inp = _cast(gen, 1, 8, 256, spread=0.0, r_lo=0.3, r_hi=0.4)
+        inp["node_poses"][..., 2] = 0.25
+        return inp
+    raise ValueError(case)
+
+
+K3_CASES = ["one_scan_1536", "ten_scans_1024", "stacked_ragged_active",
+            "padded_beams", "outside_the_gate", "beams_leave_the_map",
+            "sensor_near_the_border", "sensor_off_the_map",
+            "two_beam_chunks", "max_steps_below_n_steps",
+            "hit_and_missed_in_one_scan", "sparse_beams", "hot_cell_clamps"]
+
+
+@pytest.mark.parametrize("case", K3_CASES)
+def test_raycast_kernel_matches_plain(dev, case):
+    """K3 against the plain cast on the card: ``observed`` equal and
+    log-odds within ``raycast.kernel_tolerance``. One cell more or less in
+    a beam's walk moves a count by one, ~0.2 of log-odds, far beyond the
+    tolerance, so the two also pin the walk."""
+    gen = torch.Generator().manual_seed(K3_CASES.index(case))
+    args = _cast_on(dev, _k3_edge(gen, case))
+    _holds_against_plain(args)
+
+
+def _holds_against_plain(args):
+    from my_lidar_graph_slam_tpu_torch.ops import raycast
+    from my_lidar_graph_slam_tpu_torch.utils.metrics import MetricManager
+
+    MetricManager.reset_instance()
+    lo, ob = raycast.integrate_scans_stacked(**args)
+    ref_lo, ref_ob = raycast.integrate_scans_stacked_plain(**args)
+    torch.cuda.synchronize()
+    counters = MetricManager.instance().to_dict()["Counters"]
+    m, k = args["node_poses"].shape[:2]
+    assert counters["RaycastKernelLaunches"]["value"] == 1
+    assert counters["RaycastKernelScans"]["value"] == m * k
+    assert torch.equal(ob, ref_ob)
+    assert int(ref_ob.sum()) > 0
+    tol = raycast.kernel_tolerance(**args)
+    gap = float((lo - ref_lo).abs().max())
+    assert gap <= tol, (gap, tol)
+    assert float(lo.abs().max()) <= np.float32(raycast.gridops.LOG_ODDS_MAX)
+    return int(ref_ob.sum())
+
+
+def test_raycast_kernel_matches_plain_on_random_beams(dev):
+    """K3 against the plain cast on 2^17 random beams (any heading, poses
+    on and off 1024^2 maps, ranges across the gate) spread thin over
+    8 maps: away from each scan's sensor, where all its beams start, few
+    cells are touched twice in a scan, so the exact ``observed`` and the
+    log-odds tolerance hold the kernel's walk to the plain one there cell
+    for cell."""
+    gen = torch.Generator().manual_seed(99)
+    m, k, nb, size, steps = 8, 64, 256, 1024, 160
+    origins = 40 * torch.rand((m, 2), generator=gen) - 20
+    poses = torch.cat([
+        origins[:, None, :] + 60 * torch.rand((m, k, 2), generator=gen) - 4,
+        200 * torch.rand((m, k, 1), generator=gen) - 100], 2)
+    args = dict(
+        log_odds=torch.zeros((m, size, size)),
+        observed=torch.zeros((m, size, size), dtype=torch.bool),
+        origins=origins, resolution=0.05, node_poses=poses,
+        scan_ranges=9 * torch.rand((m, k, nb), generator=gen),
+        scan_angles=20 * torch.rand((m, k, nb), generator=gen) - 10,
+        scan_valid=torch.rand((m, k, nb), generator=gen) < 0.9,
+        rel_sensor_poses=torch.zeros((m, k, 3)),
+        usable_range_min=torch.full((m, k), 0.5),
+        usable_range_max=torch.full((m, k), 8.0), max_steps=steps)
+    assert _holds_against_plain(_cast_on(dev, args)) > 10 ** 6
+
+
+def test_raycast_kernel_bit_equal_and_self_clearing(dev):
+    """Two launches on the same input give the same bits, and the
+    kernel's per-cell counts read zero after each; a third, given the
+    maps to write into (``donate``), writes the same bits into them and
+    leaves the caller's first inputs alone otherwise."""
+    from my_lidar_graph_slam_tpu_torch.ops import raycast
+    from my_lidar_graph_slam_tpu_torch.ops.cuda import loader
+
+    def counts_are_zero():
+        counts = [b for key, b in loader._scratches.items()
+                  if key[0] == "raycast"]
+        return counts and all(int(b.abs().sum()) == 0 for b in counts)
+
+    gen = torch.Generator().manual_seed(5)
+    args = _cast_on(dev, _cast(gen, 3, 10, 1024, active_rows=[10, 4, 7]))
+    first = raycast.integrate_scans_stacked(**args)
+    torch.cuda.synchronize()
+    assert counts_are_zero()
+    again = raycast.integrate_scans_stacked(**args)
+    torch.cuda.synchronize()
+    assert counts_are_zero()
+    assert torch.equal(first[0], again[0])
+    assert torch.equal(first[1], again[1])
+    assert int(first[1].sum()) > 0
+    assert int(args["observed"].sum()) == 0
+    given = (args["log_odds"].clone(), args["observed"].clone())
+    third = raycast.integrate_scans_stacked(
+        **dict(args, log_odds=given[0], observed=given[1]), donate=True)
+    torch.cuda.synchronize()
+    assert counts_are_zero()
+    assert third[0].data_ptr() == given[0].data_ptr()
+    assert third[1].data_ptr() == given[1].data_ptr()
+    assert torch.equal(first[0], third[0])
+    assert torch.equal(first[1], third[1])
+
+
+def test_slam_casts_every_scan_with_the_kernel(dev):
+    """Over 100 keyframes of the bb_frontend settings (synchronous
+    backend) every cast is a K3 launch, two a keyframe (the local map's
+    scan, the latest map's last scans) plus one a rebuild batch, and the
+    plain cast never runs."""
+    from my_lidar_graph_slam_tpu_torch import launcher
+    from my_lidar_graph_slam_tpu_torch.io import synth
+    from my_lidar_graph_slam_tpu_torch.models import map_builder
+    from my_lidar_graph_slam_tpu_torch.utils import config
+    from my_lidar_graph_slam_tpu_torch.utils.metrics import MetricManager
+
+    scans, _ = synth.simulate(synth.intel_world(),
+                              synth.intel_waypoints(laps=1),
+                              synth.SimConfig(step=0.08, seed=0))
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    cfg = config.load(os.path.join(root, "configs",
+                                   "launcher_settings_bb_frontend.json"))
+    launcher.build_kernels(dev)
+    slam = config.create_slam(cfg, device=dev, threaded_backend=False)
+    MetricManager.reset_instance()
+
+    def launches():
+        c = MetricManager.instance().counters("RaycastKernelLaunches")
+        return int(c.value)
+
+    in_rebuilds = [0]
+    orig = map_builder.GridMapBuilder.after_loop_closure
+
+    def counted(self, graph):
+        before = launches()
+        orig(self, graph)
+        in_rebuilds[0] += launches() - before
+
+    keyframes = 0
+    map_builder.GridMapBuilder.after_loop_closure = counted
+    try:
+        for scan in scans:
+            keyframes += slam.process_scan(scan, scan.odom_pose)
+            if keyframes == 100:
+                break
+    finally:
+        map_builder.GridMapBuilder.after_loop_closure = orig
+    torch.cuda.synchronize()
+    assert keyframes == 100
+    counters = MetricManager.instance().to_dict()["Counters"]
+    assert "RaycastPlainScans" not in counters
+    assert launches() - in_rebuilds[0] == 2 * keyframes
+
+
+# --------------------------------------------------------------------------
 # The parallel layer: two shards on the one card
 # --------------------------------------------------------------------------
 

@@ -14,7 +14,8 @@ SOURCES = sorted(p for p in PKG.rglob("*.py")
     [ROOT / "chip_smoke.py",
      ROOT / "tools" / "replay_detections_torch.py",
      ROOT / "tools" / "kernel_ab.py", ROOT / "tools" / "compare_modes.py",
-     ROOT / "tools" / "bb_frontier_caps.py"]
+     ROOT / "tools" / "bb_frontier_caps.py",
+     ROOT / "tools" / "keyframe_ranges.py"]
 FORBIDDEN = ("jax", "jaxlib", "my_lidar_graph_slam_tpu", "PIL", "matplotlib")
 
 

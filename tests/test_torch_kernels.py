@@ -337,3 +337,118 @@ def test_library_name_follows_included_headers(tmp_path, monkeypatch):
     after_g = loader._target("a")
     (tmp_path / "h.cuh").write_text('#include "g.cuh"\nint h2;\n')
     assert len({before, after_g, loader._target("a")}) == 3
+
+
+# --------------------------------------------------------------------------
+# K3, the ray-cast kernel's wrapper: what it refuses, on the CPU.
+# --------------------------------------------------------------------------
+
+
+def _k3_args(m=2, k=3, nb=5, size=16, device="cpu"):
+    f = dict(dtype=torch.float32, device=device)
+    return dict(
+        log_odds=torch.zeros((m, size, size), **f),
+        observed=torch.zeros((m, size, size), dtype=torch.bool,
+                             device=device),
+        origins=torch.zeros((m, 2), **f),
+        sensor_poses=torch.zeros((m, k, 3), **f),
+        ranges=torch.ones((m, k, nb), **f),
+        angles=torch.zeros((m, k, nb), **f),
+        valid=torch.ones((m, k, nb), dtype=torch.bool, device=device),
+        active=torch.ones((m, k), dtype=torch.bool, device=device),
+        range_min=torch.zeros((m, k), **f),
+        range_max=torch.full((m, k), 10.0, **f),
+        lo_miss=torch.tensor(-0.2, **f), lo_hit=torch.tensor(0.4, **f),
+        resolution=0.05, max_steps=8, lo_max=6.9)
+
+
+def _k3_bad(case):
+    a = _k3_args()
+    if case == "cpu":
+        return a, "runs on CUDA, not cpu"
+    if case == "meta":
+        return _k3_args(device="meta"), "runs on CUDA, not meta"
+    if case == "dtype":
+        a["ranges"] = a["ranges"].double()
+        return a, "ranges must be torch.float32"
+    if case == "observed_dtype":
+        a["observed"] = a["observed"].to(torch.uint8)
+        return a, "observed must be torch.bool"
+    if case == "shape":
+        a["angles"] = a["angles"][:, :, :4]
+        return a, r"angles must have shape \(2, 3, 5\)"
+    if case == "map_shape":
+        a["observed"] = a["observed"][:, :8]
+        return a, r"observed must have shape \(2, 16, 16\)"
+    if case == "non_contiguous":
+        a["ranges"] = a["ranges"].transpose(1, 2).contiguous().transpose(1, 2)
+        return a, "ranges must be contiguous"
+    if case == "mixed_devices":
+        a["lo_hit"] = a["lo_hit"].to("meta")
+        return a, "one device"
+    if case == "beams":
+        a = _k3_args(nb=65536, size=2)
+        return a, "at most 65535 beams"
+    raise ValueError(case)
+
+
+@pytest.mark.parametrize("case", ["cpu", "meta", "dtype", "observed_dtype",
+                                  "shape", "map_shape", "non_contiguous",
+                                  "mixed_devices", "beams"])
+def test_raycast_wrapper_refuses_before_loading_the_library(case,
+                                                            monkeypatch):
+    """K3's wrapper takes contiguous float32/bool tensors of the documented
+    shapes on one CUDA device and raises on anything else before it loads
+    (or builds) the library."""
+    from my_lidar_graph_slam_tpu_torch.ops.cuda import raycast as k3
+    from my_lidar_graph_slam_tpu_torch.utils.metrics import MetricManager
+
+    def no_library(name):
+        raise AssertionError(f"library {name} loaded")
+
+    monkeypatch.setattr(loader, "library", no_library)
+    MetricManager.reset_instance()
+    args, message = _k3_bad(case)
+    with pytest.raises(ValueError, match=message):
+        k3.integrate(**args)
+    assert "RaycastKernelLaunches" not in \
+        MetricManager.instance().to_dict()["Counters"]
+
+
+def test_raycast_on_the_cpu_takes_the_plain_path(monkeypatch):
+    """CPU tensors cast through the plain path (``RaycastPlainScans``
+    counts every scan row, the kernel's counters stay absent) and never
+    load the library; any device but the CPU and CUDA raises."""
+    from my_lidar_graph_slam_tpu_torch.ops import grid as tgrid
+    from my_lidar_graph_slam_tpu_torch.ops import raycast as traycast
+    from my_lidar_graph_slam_tpu_torch.utils.metrics import MetricManager
+
+    def no_library(name):
+        raise AssertionError(f"library {name} loaded")
+
+    monkeypatch.setattr(loader, "library", no_library)
+    MetricManager.reset_instance()
+    g = tgrid.empty(64, 64, 0.05, center=(0.0, 0.0), device="cpu")
+    angles = torch.linspace(-1.5, 1.5, 31)
+    g = traycast.integrate_scan(
+        g, torch.tensor([0.1, -0.2, 0.3]), torch.full((31,), 1.2), angles,
+        torch.ones(31, dtype=torch.bool), 0.1, 10.0, max_steps=64)
+    assert int(g.observed.sum()) > 31
+    a = _k3_args(m=2, k=3, nb=31, size=64)
+    out = traycast.integrate_scans_stacked(
+        a["log_odds"], a["observed"], a["origins"] - 1.6, 0.05,
+        a["sensor_poses"], a["ranges"], angles.expand(2, 3, 31),
+        a["valid"], a["sensor_poses"], a["range_min"], a["range_max"],
+        a["active"], max_steps=64)
+    assert int(out[1].sum()) > 31
+    counters = MetricManager.instance().to_dict()["Counters"]
+    assert counters["RaycastPlainScans"]["value"] == 1 + 2 * 3
+    assert "RaycastKernelScans" not in counters
+    assert "RaycastKernelLaunches" not in counters
+    meta = _k3_args(device="meta")
+    with pytest.raises(ValueError, match="unsupported device meta"):
+        traycast.integrate_scans_stacked(
+            meta["log_odds"], meta["observed"], meta["origins"], 0.05,
+            meta["sensor_poses"], meta["ranges"], meta["angles"],
+            meta["valid"], meta["sensor_poses"], meta["range_min"],
+            meta["range_max"])

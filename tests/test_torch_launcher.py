@@ -473,6 +473,7 @@ def test_launcher_writes_the_jax_artifacts(launcher_runs):
             # The port's own counters, beside the JAX package's names.
             names -= {n for n in names if n.startswith("HostSyncs.")}
             names.remove("FrontendMatches")
+            names.remove("RaycastPlainScans")
         assert names == set(mj[family]), family
     assert mt["Counters"]["FrontendMatches"] == \
         mt["Counters"]["FrontendMxuMatches"]
